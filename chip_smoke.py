@@ -5,24 +5,39 @@
 Phases, in order; any failure propagates and the script exits non-zero:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: the flash-attention kernel from deeplearning4j_tpu_torch/ops/csrc
-   (a second run reuses the build);
-3. kernel vs plain: the flash-attention forward kernel against its plain
-   PyTorch version on the same inputs on the card, over head dims, dtypes,
-   causal or not, masks (including fully masked rows) and lengths; then
-   timed at the flagship shape beside the plain version, the bound, and
-   torch's scaled_dot_product_attention (timed only as a yardstick);
-4. main path: the flagship transformer LM (d_model 768, 12 layers, 12
-   heads, d_ff 3072, V 32768, mixed_bf16) built and initialised by the
-   port on the card, one forward over [8, 2048] ids through the kernel —
-   which must launch exactly once per layer; every layer's kernel call held
-   against the plain version on its own inputs; the vocabulary logits of
-   the kernel route held against the plain-kernel and the dense attention
-   routes; timed;
-5. server: InferenceServer over that model answers concurrent
+2. build: both kernel sources from deeplearning4j_tpu_torch/ops/csrc, one
+   nvcc each, all at once (a second run reuses the builds); each one's
+   build seconds, registers and spills;
+3. forward kernel vs plain: the flash-attention forward kernel against its
+   plain PyTorch version on the same inputs on the card, over head dims,
+   dtypes, causal or not, masks (including fully masked rows) and lengths;
+   then timed at the flagship shape beside the plain version, the bound,
+   and torch's scaled_dot_product_attention (timed only as a yardstick);
+4. backward kernels vs plain: the Δ preprocess, dq and fused dk/dv kernels
+   against the plain backward over the same 48 cases (dq, dk, dv and Δ;
+   exact zeros for masked keys and rows with no key); then each kernel
+   timed at the flagship shape beside the plain backward, its bound, and
+   the backward of scaled_dot_product_attention (a yardstick only);
+5. forward main path: the flagship transformer LM (d_model 768, 12
+   layers, 12 heads, d_ff 3072, V 32768, mixed_bf16) built and initialised
+   by the port on the card, one forward over [8, 2048] ids through the
+   kernel — which must launch exactly once per layer; every layer's kernel
+   call held against the plain version on its own inputs; the vocabulary
+   logits of the kernel route held against the plain-kernel and the dense
+   attention routes; timed and profiled;
+6. server: InferenceServer over that model answers concurrent
    POST /predict requests, each equal to net.output on the same ids;
-6. a JSON line of the kernels (launches on the main path, error, times,
-   bound), the card line, and last {"ok": true, "device": {...}}.
+7. training main path on that model (adam at lr 3e-4, ids [8, 2049]
+   split into inputs and next-token labels): one fit_batch, in which each
+   of the four kernels must launch exactly once per layer; each layer's
+   backward kernel call held against the plain backward on its own
+   inputs; step-0 gradients of the kernel route against the route with
+   the plain attention forward and backward, and against the kernel
+   forward with the plain backward (which a backward missing one key tile
+   must fail); two timed rounds of fit_repeated(k=8) (losses finite and
+   falling), the same for the dense attention route; one step profiled;
+8. a JSON line of the kernels (launches on the training path, error,
+   times, bound), the card line, and last {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -45,11 +60,14 @@ if not torch.cuda.is_available():
 
 from deeplearning4j_tpu_torch.models import transformer_lm  # noqa: E402
 from deeplearning4j_tpu_torch.nn.graph_runtime import ComputationGraph  # noqa: E402
+from deeplearning4j_tpu_torch.ops import _nvcc  # noqa: E402
 from deeplearning4j_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from deeplearning4j_tpu_torch.serving import InferenceServer  # noqa: E402
 
 SEED = 20261016
 DEV = torch.device("cuda")
+KERNELS = (fa.FLASH_FWD, fa.FLASH_BWD_PREPROCESS, fa.FLASH_BWD_DQ,
+           fa.FLASH_BWD_DKV)
 # H100 SXM published dense peaks (NVIDIA data sheet), at the 700 W limit
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
@@ -64,6 +82,7 @@ PEAK_BYTES = 3.35e12
 # std 1, so |out| is ≈ 1 in the first rows and ≈ 0.04 by row 2000, where
 # (P·|V|)/l ≈ 0.8 and the bound is ≈ 0.007. bf16 lse: both sides compute
 # it in f32 from the same bf16 q/k: within 1e-3.
+GRID_T = (256, 2048)   # the lengths of the kernel-vs-plain grids
 TOL_F32 = 1e-4
 TOL_LSE = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 # Whole forward: the vocabulary logits [8, 2048, 32768] of the kernel route
@@ -85,6 +104,35 @@ FAULT_KEYS = 64
 # of the largest p (the same kernel route; only the batch differs).
 SERVE_TOL = 2.0 ** -5
 ROW_SUM_TOL = 1e-2   # a bf16 softmax row over 32768 classes sums to 1
+
+# Backward kernels vs plain, on the same inputs on the card.
+# f32: dq, dk and dv within 1e-4 (f32 on both sides, TF32 off; only the
+# summation order differs). bf16: element by element within
+# fa.bf16_grad_tolerance = 2^-7·(|ref| + |X|·|Y|) + 2^-16, where X is the
+# f32 operand the kernel rounds to bf16 before its last product (dS for dq
+# and dk, P for dv). Δ = rowsum(dO∘O): f32 sums of the same products on
+# both sides, within 1e-4. Masked keys and rows with no key: exact zeros.
+TOL_GRAD_F32 = 1e-4
+TOL_DELTA = 1e-4
+# Training main path: step-0 parameter gradients of the kernel route
+# against two routes, as (max|Δg|/max|g|, rms Δg/rms g) over all
+# parameters:
+# - "plain": attention forward and backward both plain. Every route rounds
+#   each layer to bf16 and the forward's rounding of P and out parts the
+#   routes as it parted the logits; observed on an H100 (PERF.md, Findings)
+#   (0.02325, 0.04157); the bound is about twice that. A backward that
+#   leaves one 64-key tile's dk/dv out reads (0.02722, 0.03329) against
+#   this route: inside the noise, so this comparison cannot see it;
+# - "plain backward": the kernel forward with the plain backward, so only
+#   the backward kernels' rounding differs; observed (0.00442, 0.002906),
+#   the bound about twice that. The same route with one 64-key tile's
+#   dk/dv left out reads (0.02718, 0.0333) and must exceed it.
+GRAD_ROUTE_TOL = {"plain": {"max": 0.05, "rms": 0.085},
+                  "plain backward": {"max": 0.009, "rms": 0.006}}
+TRAIN_K = 8          # bench.py's fit_repeated(k) rounds
+TRAIN_ROUNDS = 2
+FLAGSHIP = {"V": 32768, "L": 12, "D": 768, "H": 12, "F": 3072, "T": 2048,
+            "B": 8}
 
 
 def card_line() -> str:
@@ -169,7 +217,7 @@ def phase_kernel_vs_plain():
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     worst = {}
     n_cases = 0
-    for t in (256, 2048):
+    for t in GRID_T:
         for d in (64, 128):
             for dtype in (torch.bfloat16, torch.float32):
                 for causal in (True, False):
@@ -243,7 +291,7 @@ def phase_flagship_kernel_timing():
 
 
 def phase_main_path():
-    V, L, D, H, F = 32768, 12, 768, 12, 3072
+    V, L, D, H, F = (FLAGSHIP[k] for k in "VLDHF")
     conf = transformer_lm(V, n_layers=L, d_model=D, n_heads=H, d_ff=F,
                           dtype="mixed_bf16", input_ids=True)
     t0 = time.perf_counter()
@@ -255,13 +303,15 @@ def phase_main_path():
     net.output(ids[:1, :128])          # warm up
     torch.cuda.synchronize()
 
-    fa.FLASH_FWD.launches = 0
+    for kn in KERNELS:
+        kn.launches = 0
     p = net.output(ids)
     torch.cuda.synchronize()
     launches = fa.FLASH_FWD.launches
-    if launches != L:
-        raise AssertionError(f"main path launched flash_fwd {launches} times, "
-                             f"expected {L}")
+    if launches != L or any(kn.launches for kn in KERNELS[1:]):
+        raise AssertionError(
+            f"forward path launched {[kn.launches for kn in KERNELS]}, "
+            f"expected flash_fwd {L} times and no backward kernel")
     if tuple(p.shape) != (8, 2048, V) or p.dtype != torch.bfloat16:
         raise AssertionError(f"output {tuple(p.shape)} {p.dtype}")
     pf = p.float()
@@ -296,9 +346,9 @@ def phase_main_path():
 
     # the vocabulary logits of the kernel route against the route whose
     # attention is the plain version, the dense route, and a faulty route
-    with flash_calls(replace=plain_fwd):
+    with kernel_routes(fwd=plain_fwd):
         logits_plain = head_logits(net, ids)
-    with flash_calls(replace=faulty_plain_fwd):
+    with kernel_routes(fwd=faulty_plain_fwd):
         logits_fault = head_logits(net, ids)
     os.environ["DL4JTPU_FLASH_ATTENTION"] = "0"
     try:
@@ -336,32 +386,41 @@ def phase_main_path():
     print(f"main path forward [8, 2048]: {fwd_s * 1e3:.3f} ms, "
           f"{ids.size / fwd_s:.1f} tokens/s (dense attention route: "
           f"{dense_s * 1e3:.3f} ms, {ids.size / dense_s:.1f} tokens/s)")
-    profile_forward(net, ids)
+    profile(lambda: net.output(ids), "one forward")
     fa.FLASH_FWD.launches = launches_before   # timing launches do not count
     return net, launches
 
 
 @contextlib.contextmanager
-def flash_calls(replace=None):
-    """Within the block, every flash-attention call on the card goes
-    through ``replace(q, k, v, mask, causal, scale)`` instead of the
-    kernel; with no ``replace``, the kernel runs and each call's inputs and
-    output are recorded in the list the block receives."""
+def kernel_routes(fwd=None, bwd=None):
+    """Within the block, the flash forward and backward on the card run
+    ``fwd(q, k, v, mask, causal, scale)`` and ``bwd(q, k, v, mask, out, lse,
+    dout, causal, scale)`` in place of the kernels (None keeps a kernel)."""
+    saved = fa._flash_fwd_cuda, fa._flash_bwd_cuda
+    if fwd is not None:
+        fa._flash_fwd_cuda = fwd
+    if bwd is not None:
+        fa._flash_bwd_cuda = bwd
+    try:
+        yield
+    finally:
+        fa._flash_fwd_cuda, fa._flash_bwd_cuda = saved
+
+
+@contextlib.contextmanager
+def flash_calls():
+    """Within the block, every forward kernel call also records its inputs
+    and output in the list the block receives."""
     calls = []
     kernel = fa._flash_fwd_cuda
 
     def spy(q, k, v, mask, causal, scale):
-        if replace is not None:
-            return replace(q, k, v, mask, causal, scale)
         out, lse = kernel(q, k, v, mask, causal, scale)
         calls.append((q, k, v, mask, causal, scale, out))
         return out, lse
 
-    fa._flash_fwd_cuda = spy
-    try:
+    with kernel_routes(fwd=spy):
         yield calls
-    finally:
-        fa._flash_fwd_cuda = kernel
 
 
 def plain_fwd(q, k, v, mask, causal, scale):
@@ -404,27 +463,29 @@ def forward_seconds(net, ids, reps=5):
     return (time.perf_counter() - t0) / reps
 
 
-def profile_forward(net, ids, top=10):
-    """Device time of one forward by kernel (torch.profiler), largest
-    first, and the share of the flash kernel."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        net.output(ids)
+def profile(fn, what, top=10):
+    """Device time of one call of ``fn`` by kernel (torch.profiler),
+    largest first. Returns the device milliseconds (None if the profiler
+    recorded no device kernels)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) is not None
               and "CUDA" in str(e.device_type)]
     if not events:
         print("profile: the profiler recorded no device kernels")
-        return
+        return None
     total = sum(e.self_device_time_total for e in events)
-    print(f"profile: one forward, {total / 1e3:.3f} ms of device time in "
+    print(f"profile: {what}, {total / 1e3:.3f} ms of device time in "
           f"{sum(e.count for e in events)} kernel launches")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
               f"{100.0 * e.self_device_time_total / total:5.1f}% "
               f"x{e.count:<4d} {e.key[:90]}")
+    return total / 1e3
 
 
 def phase_server(net):
@@ -475,31 +536,408 @@ def phase_server(net):
         server.stop(drain=True, timeout=60)
 
 
+# --------------------------------------------------------------------------
+# backward kernels
+# --------------------------------------------------------------------------
+
+
+def grad_errors(q, k, v, mask, out, lse, dout, causal, scale, got, ref):
+    """[(max|Δ|, max of |Δ| over its bound)] for dq, dk, dv: f32 against
+    TOL_GRAD_F32, bf16 element by element against fa.bf16_grad_tolerance."""
+    if q.dtype == torch.bfloat16:
+        tols = fa.bf16_grad_tolerance(q, k, v, mask, out, lse, dout, ref,
+                                      causal=causal, scale=scale)
+    else:
+        tols = (TOL_GRAD_F32,) * 3
+    res = []
+    for g, r, tol in zip(got, ref, tols):
+        err = (g.float() - r.float()).abs()
+        res.append((err.max().item(), (err / tol).max().item()))
+    return res
+
+
+def check_grad_zeros(mask, causal, grads, case):
+    """Masked keys give dk = dv = 0 and rows with no attendable key give
+    dq = 0, exactly."""
+    dq, dk, dv = grads
+    if mask is None:
+        return
+    masked = mask <= 0                                  # [b, t] keys
+    if dk[masked].abs().max().item() != 0.0 or \
+            dv[masked].abs().max().item() != 0.0:
+        raise AssertionError(f"masked keys got dk/dv != 0: {case}")
+    dead = ~(mask > 0).any(dim=1, keepdim=True).expand_as(masked)
+    if causal:   # a row is dead when no key at or before it is valid
+        dead = torch.cumsum((mask > 0).int(), dim=1) == 0
+    if dead.any() and dq[dead].abs().max().item() != 0.0:
+        raise AssertionError(f"rows with no key got dq != 0: {case}")
+
+
+def phase_bwd_kernel_vs_plain():
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    worst = {}
+    n_cases = 0
+    before = [kn.launches for kn in KERNELS]
+    for t in GRID_T:
+        for d in (64, 128):
+            for dtype in (torch.bfloat16, torch.float32):
+                for causal in (True, False):
+                    for mkind in ("none", "random", "padded"):
+                        b, h = 2, 3
+                        q, k, v = make_qkv(gen, b, t, h, d, dtype)
+                        mask = make_mask(mkind, b, t)
+                        dout = torch.randn((b, t, h, d), generator=gen,
+                                           device=DEV).to(dtype)
+                        out, lse = fa.flash_attention_fwd(q, k, v, mask,
+                                                          causal=causal)
+                        grads = fa.flash_attention_bwd(q, k, v, mask, out,
+                                                       lse, dout,
+                                                       causal=causal)
+                        delta = fa._flash_bwd_preprocess_cuda(out, dout)
+                        ref = fa.flash_attention_bwd_plain(
+                            q, k, v, mask, out, lse, dout, causal=causal)
+                        e_delta = (delta - fa.flash_bwd_preprocess_plain(
+                            out, dout)).abs().max().item()
+                        errs = grad_errors(q, k, v, mask, out, lse, dout,
+                                           causal, None, grads, ref)
+                        case = (f"t={t} d={d} {str(dtype)[6:]} "
+                                f"causal={causal} mask={mkind}")
+                        if not (max(r for _, r in errs) <= 1.0
+                                and e_delta <= TOL_DELTA):
+                            raise AssertionError(
+                                f"backward kernels disagree with plain: "
+                                f"{case}: (max|d|, share of bound) dq/dk/dv "
+                                f"{errs}, max|dDelta|={e_delta:.3g}")
+                        check_grad_zeros(mask, causal, grads, case)
+                        w = worst.setdefault(str(dtype)[6:], [0.0] * 7)
+                        for i, (e, r) in enumerate(errs):
+                            w[2 * i] = max(w[2 * i], e)
+                            w[2 * i + 1] = max(w[2 * i + 1], r)
+                        w[6] = max(w[6], e_delta)
+                        n_cases += 1
+    for kn, n in zip(KERNELS, before):   # check launches do not count
+        kn.launches = n
+    for key, w in worst.items():
+        bound = ("bf16_grad_tolerance" if key == "bfloat16"
+                 else f"{TOL_GRAD_F32}")
+        print(f"backward kernels vs plain, {key}: max|d| (share of the bound "
+              f"{bound}) dq {w[0]:.6g} ({w[1]:.4g}), dk {w[2]:.6g} "
+              f"({w[3]:.4g}), dv {w[4]:.6g} ({w[5]:.4g}); max|dDelta| "
+              f"{w[6]:.6g} (tolerance {TOL_DELTA})")
+    print(f"backward kernels vs plain: {n_cases} cases passed, masked keys "
+          "and rows with no key exact zeros")
+
+
+def bwd_bounds(b, t, h, d, itemsize):
+    """(bound_ms, bound_by) per backward kernel at a causal, unmasked call:
+    bytes with each input read once and each output written once; FLOPs
+    6·d per attended (query, key) pair for dq (S, dP, dS·K), 8·d for dk/dv
+    (S, dP, dSᵀ·Q, Pᵀ·dO), 2·d per row for Δ (f32 on the CUDA cores)."""
+    pairs = b * h * t * (t + 1) / 2
+    x = b * t * h * d * itemsize          # one [b, t, h, d] tensor
+    row = b * h * t * 4                   # one [b, h, t] f32 tensor
+    work = {"flash_bwd_preprocess": (2 * d * b * t * h / PEAK_F32_FLOPS,
+                                     2 * x + row),
+            "flash_bwd_dq": (6 * d * pairs / PEAK_BF16_FLOPS,
+                             4 * x + 2 * row + x),
+            "flash_bwd_dkv": (8 * d * pairs / PEAK_BF16_FLOPS,
+                              4 * x + 2 * row + 2 * x)}
+    res = {}
+    for name, (t_ops, nbytes) in work.items():
+        t_ops, t_bytes = t_ops * 1e3, nbytes / PEAK_BYTES * 1e3
+        res[name] = (max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return res
+
+
+def phase_bwd_timing():
+    b, t, h = (FLAGSHIP[k] for k in "BTH")
+    d = FLAGSHIP["D"] // h
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    q, k, v = make_qkv(gen, b, t, h, d, torch.bfloat16)
+    dout = torch.randn((b, t, h, d), generator=gen, device=DEV).bfloat16()
+    before = [kn.launches for kn in KERNELS]
+    out, lse = fa.flash_attention_fwd(q, k, v, None, causal=True)
+    grads = fa.flash_attention_bwd(q, k, v, None, out, lse, dout, causal=True)
+    delta = fa._flash_bwd_preprocess_cuda(out, dout)
+    ref = fa.flash_attention_bwd_plain(q, k, v, None, out, lse, dout,
+                                       causal=True)
+    errs = grad_errors(q, k, v, None, out, lse, dout, True, None, grads, ref)
+    e_delta = (delta - fa.flash_bwd_preprocess_plain(out, dout)).abs().max().item()
+    if not (max(r for _, r in errs) <= 1.0 and e_delta <= TOL_DELTA):
+        raise AssertionError(f"flagship-shape backward error {errs}, "
+                             f"dDelta {e_delta}")
+    scale = 1.0 / d ** 0.5
+    ms = {"flash_bwd_preprocess": cuda_ms(
+              lambda: fa._flash_bwd_preprocess_cuda(out, dout), 20),
+          "flash_bwd_dq": cuda_ms(lambda: fa._flash_bwd_dq_cuda(
+              q, k, v, None, lse, delta, dout, True, scale), 20),
+          "flash_bwd_dkv": cuda_ms(lambda: fa._flash_bwd_dkv_cuda(
+              q, k, v, None, lse, delta, dout, True, scale), 20)}
+    plain_delta_ms = cuda_ms(lambda: fa.flash_bwd_preprocess_plain(out, dout),
+                             20)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, None, out, lse, dout, causal=True), 3, warmup=1)
+    vecdot_ms = cuda_ms(lambda: torch.linalg.vecdot(dout, out), 20)
+    qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    oh = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh,
+                                                          is_causal=True)
+    doh = dout.transpose(1, 2)
+    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        oh, (qh, kh, vh), doh, retain_graph=True), 20)
+    for kn, n in zip(KERNELS, before):   # timing launches do not count
+        kn.launches = n
+    bounds = bwd_bounds(b, t, h, d, 2)
+    res = {}
+    for name, err, plain, lib in (
+            ("flash_bwd_preprocess", e_delta, plain_delta_ms, vecdot_ms),
+            ("flash_bwd_dq", errs[0][0], plain_ms, None),
+            ("flash_bwd_dkv", max(errs[1][0], errs[2][0]), plain_ms, None)):
+        res[name] = {"max_abs_err": err, "ms": ms[name], "plain_ms": plain,
+                     "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                     "library_ms": lib}
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        res[name]["plain_computes"] = "dq, dk and dv"
+        res[name]["sdpa_backward_ms"] = sdpa_bwd_ms
+    res["flash_bwd_preprocess"]["library_call"] = "torch.linalg.vecdot"
+    total = sum(ms.values())
+    print(f"flash backward at [b={b}, t={t}, h={h}, d={d}] causal bf16: "
+          + "; ".join(f"{n} {ms[n]:.4f} ms (bound {bounds[n][0]:.4f} ms, "
+                      f"{bounds[n][1]})" for n in ms)
+          + f"; the three {total:.4f} ms against the backward of "
+          f"scaled_dot_product_attention {sdpa_bwd_ms:.4f} ms; plain backward "
+          f"{plain_ms:.4f} ms, plain Delta {plain_delta_ms:.4f} ms, vecdot "
+          f"{vecdot_ms:.4f} ms; max|d| vs plain dq/dk/dv "
+          + ", ".join(f"{e:.6g} ({r:.4g} of its bound)" for e, r in errs)
+          + f", Delta {e_delta:.6g}")
+    return res
+
+
+# --------------------------------------------------------------------------
+# training main path
+# --------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def bwd_calls():
+    """Within the block, every backward kernel call also records its
+    inputs and outputs in the list the block receives."""
+    calls = []
+    kernel = fa._flash_bwd_cuda
+
+    def spy(q, k, v, mask, out, lse, dout, causal, scale):
+        grads = kernel(q, k, v, mask, out, lse, dout, causal, scale)
+        calls.append((q, k, v, mask, out, lse, dout, causal, scale, grads))
+        return grads
+
+    with kernel_routes(bwd=spy):
+        yield calls
+
+
+def plain_bwd(q, k, v, mask, out, lse, dout, causal, scale):
+    return fa.flash_attention_bwd_plain(q, k, v, mask, out, lse, dout,
+                                        causal=causal, scale=scale)
+
+
+def faulty_plain_bwd(q, k, v, mask, out, lse, dout, causal, scale):
+    """The plain backward with one 64-key tile's dk and dv left out."""
+    dq, dk, dv = plain_bwd(q, k, v, mask, out, lse, dout, causal, scale)
+    t = q.shape[1]
+    dk[:, t // 2:t // 2 + FAULT_KEYS] = 0
+    dv[:, t // 2:t // 2 + FAULT_KEYS] = 0
+    return dq, dk, dv
+
+
+def flat_grads(net, x, y):
+    """Step-0 parameter gradients (no update) as one f32 vector."""
+    _, grads = net._loss_and_grads([x], [y], None)
+    return torch.cat([g.float().reshape(-1) for ps in grads.values()
+                      for g in ps.values()])
+
+
+def train_flops_per_token(d, n_layers, d_ff, vocab, t):
+    """Model FLOPs per trained token, as bench.py counts them: 3× (forward
+    and backward) the forward's 2 FLOPs per matmul weight, plus the causal
+    attention matmuls QKᵀ and PV over T/2 keys on average. LayerNorm,
+    softmax and residual vector work are left out."""
+    matmul_params = n_layers * (4.0 * d * d + 2.0 * d * d_ff) + d * vocab
+    attn = n_layers * 2.0 * (t / 2.0) * d * 2.0
+    return 3.0 * (2.0 * matmul_params + attn)
+
+
+def fit_rounds(net, x, y):
+    """bench.py's timing: one warm-up fit_repeated(k), then TRAIN_ROUNDS
+    timed calls ended by one host sync. Returns (every loss of the three
+    calls on the host, seconds per step)."""
+    warm = net.fit_repeated(x, y, TRAIN_K)
+    warm.cpu()
+    t0 = time.perf_counter()
+    timed = [net.fit_repeated(x, y, TRAIN_K) for _ in range(TRAIN_ROUNDS)]
+    timed[-1].cpu()
+    step_s = (time.perf_counter() - t0) / (TRAIN_ROUNDS * TRAIN_K)
+    return torch.cat([warm] + timed).float().cpu().numpy(), step_s
+
+
+def phase_training(net):
+    V, L, D, F, T, B = (FLAGSHIP[k] for k in "VLDFTB")
+    if net.conf.training.updater != "adam" or \
+            net.conf.training.learning_rate != 3e-4:
+        raise AssertionError("the flagship trains with adam at lr 3e-4")
+    ids = np.random.default_rng(SEED + 5).integers(
+        0, V, (B, T + 1)).astype(np.int32)
+    # staged on the card once, so no step waits on a host copy
+    x = torch.as_tensor(ids[:, :-1], device=DEV)
+    y = torch.as_tensor(ids[:, 1:], device=DEV)
+
+    # 1. one fit_batch: every kernel launches once per layer
+    with bwd_calls() as calls:
+        for kn in KERNELS:
+            kn.launches = 0
+        loss0 = net.fit_batch(x, y)
+        torch.cuda.synchronize()
+        launches = {kn.name: kn.launches for kn in KERNELS}
+    loss0 = float(loss0)
+    print(f"training main path: one fit_batch, loss {loss0:.6g}, launches "
+          f"{launches}")
+    if any(n != L for n in launches.values()):
+        raise AssertionError(f"a training step launched {launches}, "
+                             f"expected each kernel {L} times")
+    if not np.isfinite(loss0):
+        raise AssertionError("non-finite training loss")
+
+    # 2. each layer's backward kernel call against the plain backward
+    if len(calls) != L:
+        raise AssertionError(f"{len(calls)} backward calls in a step")
+    per_call = []
+    for q, k, v, mask, out, lse, dout, causal, scale, grads in calls:
+        ref = plain_bwd(q, k, v, mask, out, lse, dout, causal, scale)
+        per_call.append(grad_errors(q, k, v, mask, out, lse, dout, causal,
+                                    scale, grads, ref))
+    del calls
+    worst = max(r for errs in per_call for _, r in errs)
+    print("training main path, each layer's backward kernel call vs plain: "
+          "max|d| dq/dk/dv " + "; ".join(
+              "/".join(f"{e:.3g}" for e, _ in errs) for errs in per_call)
+          + f"; at most {worst:.4g} of the bound")
+    if not worst <= 1.0:
+        raise AssertionError("a main-path backward kernel call disagrees "
+                             "with plain")
+
+    # 3. step-0 gradients: the kernel route against the plain-attention
+    # route, and against the kernel forward with the plain backward
+    before = [kn.launches for kn in KERNELS]
+    g_kernel = flat_grads(net, x, y)
+    with kernel_routes(fwd=plain_fwd, bwd=plain_bwd):
+        g_plain = flat_grads(net, x, y)
+    with kernel_routes(bwd=plain_bwd):
+        g_plain_bwd = flat_grads(net, x, y)
+    with kernel_routes(bwd=faulty_plain_bwd):
+        g_fault = flat_grads(net, x, y)
+    for kn, n in zip(KERNELS, before):   # check launches do not count
+        kn.launches = n
+    readings = {"plain": route_diff(g_kernel, g_plain),
+                "plain backward": route_diff(g_kernel, g_plain_bwd),
+                "fault vs plain backward": route_diff(g_fault, g_plain_bwd)}
+    print(f"training main path, step-0 gradients ({g_plain.numel()} params; "
+          f"max|g| {g_plain.abs().max().item():.6g}, rms "
+          f"{g_plain.pow(2).mean().sqrt().item():.6g}); relative (max|d|, "
+          "rms d) — " + "; ".join(f"{n}: ({mx:.4g}, {rms:.4g})"
+                                  for n, (mx, rms) in readings.items())
+          + f"; bounds {GRAD_ROUTE_TOL}")
+    del g_kernel, g_plain, g_plain_bwd, g_fault
+    for name, tol in GRAD_ROUTE_TOL.items():
+        mx, rms = readings[name]
+        if not (mx <= tol["max"] and rms <= tol["rms"]):
+            raise AssertionError(f"kernel-route gradients disagree with the "
+                                 f"{name} route")
+    mx, rms = readings["fault vs plain backward"]
+    tol = GRAD_ROUTE_TOL["plain backward"]
+    if not (mx > tol["max"] and rms > tol["rms"]):
+        raise AssertionError("the whole-path gradient check does not see a "
+                             "backward that leaves one 64-key tile out")
+
+    # 4./5. two timed rounds of fit_repeated(k) on the same batch
+    before = [kn.launches for kn in KERNELS]
+    losses, step_s = fit_rounds(net, x, y)
+    if not np.isfinite(losses).all() or not losses[-1] < loss0:
+        raise AssertionError(f"fit_repeated losses {losses} (step 0: {loss0})")
+    os.environ["DL4JTPU_FLASH_ATTENTION"] = "0"
+    try:
+        dense_losses, dense_s = fit_rounds(net, x, y)
+    finally:
+        del os.environ["DL4JTPU_FLASH_ATTENTION"]
+    if not np.isfinite(dense_losses).all():
+        raise AssertionError("non-finite dense-route losses")
+    fpt = train_flops_per_token(D, L, F, V, T)
+    tps, dense_tps = B * T / step_s, B * T / dense_s
+    print(f"training main path: fit_repeated(k={TRAIN_K}) x "
+          f"{1 + TRAIN_ROUNDS} losses {np.array2string(losses, precision=5)}"
+          f" (step 0: {loss0:.6g})")
+    print(f"training main path [{B}, {T}] adam mixed_bf16: step "
+          f"{step_s * 1e3:.3f} ms, {tps:.1f} tokens/s, model FLOPs per token "
+          f"{fpt:.1f}, {100 * tps * fpt / PEAK_BF16_FLOPS:.2f}% of "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; dense attention route: "
+          f"step {dense_s * 1e3:.3f} ms, {dense_tps:.1f} tokens/s, "
+          f"{100 * dense_tps * fpt / PEAK_BF16_FLOPS:.2f}%")
+
+    # 6. one step profiled
+    dev_ms = profile(lambda: net.fit_batch(x, y), "one training step")
+    if dev_ms is not None:
+        print(f"training main path: device busy {dev_ms:.3f} ms of the "
+              f"{step_s * 1e3:.3f} ms step ({100 * dev_ms / (step_s * 1e3):.1f}%)")
+    for kn, n in zip(KERNELS, before):   # timing launches do not count
+        kn.launches = n
+    return launches
+
+
 def main():
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
 
-    k = fa.FLASH_FWD
-    k.lib()
-    print(f"build {k.name}: {k.build_seconds:.3f} s -> {k.library_path()}")
-    for ln in k.build_log.splitlines():   # per kernel: registers, spills
-        if "Compiling entry function" in ln or "registers" in ln \
-                or "spill" in ln:
-            print(f"  {ln.strip()}")
+    _nvcc.build_all()       # one nvcc per source, all at once
+    for lib in _nvcc.LIBRARIES.values():
+        print(f"build {lib.name}: {lib.build_seconds:.3f} s -> "
+              f"{lib.library_path()}")
+        for ln in lib.build_log.splitlines():   # per kernel: registers, spills
+            if "Compiling entry function" in ln or "registers" in ln \
+                    or "spill" in ln:
+                print(f"  {ln.strip()}")
 
     phase_kernel_vs_plain()
     timing = phase_flagship_kernel_timing()
-    net, launches = phase_main_path()
+    phase_bwd_kernel_vs_plain()
+    bwd_timing = phase_bwd_timing()
+    net, fwd_launches = phase_main_path()
     phase_server(net)
+    train_launches = phase_training(net)
 
+    src = "deeplearning4j_tpu_torch/ops/csrc/"
+    ref = "deeplearning4j_tpu/ops/flash_attention.py:"
     kernels = [{"name": "flash_fwd", "route": "cuda",
-                "source": "deeplearning4j_tpu_torch/ops/csrc/flash_fwd.cu",
-                "replaces": "deeplearning4j_tpu/ops/flash_attention.py:91",
-                "replaces_also": "deeplearning4j_tpu/ops/flash_attention.py:124",
+                "source": src + "flash_fwd.cu", "replaces": ref + "91",
+                "replaces_also": ref + "124",
                 "tpu_kernels": ["_fwd_kernel_vmem", "_fwd_kernel_stream"],
-                "launches": launches, **timing}]
+                "launches": train_launches["flash_fwd"],
+                "launches_forward_path": fwd_launches, **timing},
+               {"name": "flash_bwd_preprocess", "route": "cuda",
+                "source": src + "flash_bwd.cu", "replaces": ref + "442",
+                "replaces_note": "an XLA pass of _flash_bwd_btd_pallas, "
+                                 "not a Pallas kernel",
+                "launches": train_launches["flash_bwd_preprocess"],
+                **bwd_timing["flash_bwd_preprocess"]},
+               {"name": "flash_bwd_dq", "route": "cuda",
+                "source": src + "flash_bwd.cu", "replaces": ref + "359",
+                "tpu_kernels": ["_bwd_dq_kernel"],
+                "launches": train_launches["flash_bwd_dq"],
+                **bwd_timing["flash_bwd_dq"]},
+               {"name": "flash_bwd_dkv", "route": "cuda",
+                "source": src + "flash_bwd.cu", "replaces": ref + "391",
+                "tpu_kernels": ["_bwd_dkv_kernel"],
+                "launches": train_launches["flash_bwd_dkv"],
+                **bwd_timing["flash_bwd_dkv"]}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

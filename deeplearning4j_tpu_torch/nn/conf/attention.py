@@ -65,6 +65,9 @@ class SelfAttentionLayer(Layer):
         return {"Wqkv": (self.n_in, 3 * self.n_in),
                 "Wo": (self.n_in, self.n_out), "b": (self.n_out,)}
 
+    def regularized_params(self):
+        return ("Wqkv", "Wo")
+
     def init_params(self, gen, policy=None, device="cpu"):
         dt = (policy or _dtypes.FLOAT32).param_dtype
         wqkv = init_weights(gen, (self.n_in, 3 * self.n_in),

@@ -95,8 +95,15 @@ class GraphVertex:
         pass
 
     def apply(self, params, xs: List[torch.Tensor], *, state=None,
-              policy=None):
+              policy=None, masks=None, train=False):
         raise NotImplementedError
+
+    def output_mask(self, masks: Optional[List[Optional[torch.Tensor]]]):
+        """Propagate masks: the first non-None input mask."""
+        for m in masks or ():
+            if m is not None:
+                return m
+        return None
 
 
 @register_vertex("layer")
@@ -125,8 +132,16 @@ class LayerVertex(GraphVertex):
     def set_n_in(self, input_types, override=False):
         self.layer.set_n_in(input_types[0], override)
 
-    def apply(self, params, xs, *, state=None, policy=None):
-        return self.layer.apply(params, xs[0], state=state, policy=policy)
+    def apply(self, params, xs, *, state=None, policy=None, masks=None,
+              train=False):
+        if train and (self.layer.dropout or 0.0) > 0.0:
+            raise NotYetPorted(
+                f"training a {type(self.layer).__name__} with dropout="
+                f"{self.layer.dropout}: dropout is not yet ported to the "
+                "PyTorch package")
+        return self.layer.apply(params, xs[0], state=state,
+                                mask=masks[0] if masks else None,
+                                policy=policy)
 
 
 @register_vertex("elementwise")
@@ -140,7 +155,8 @@ class ElementWiseVertex(GraphVertex):
     def output_type(self, input_types):
         return input_types[0]
 
-    def apply(self, params, xs, *, state=None, policy=None):
+    def apply(self, params, xs, *, state=None, policy=None, masks=None,
+              train=False):
         op = self.op.lower()
         if op == "add":
             out = xs[0]

@@ -8,9 +8,10 @@ tensors::
     params       = conf.init_params(generator, policy, device)  # {name: tensor}
     y, state     = conf.apply(params, x, state=..., mask=..., policy=...)
 
-This slice ports the layers of the transformer-LM inference path. Any other
-layer type found in a configuration raises :class:`NotYetPorted` naming
-the type. Training (dropout, losses) comes with the training slice.
+The port has the layers of the transformer-LM path, for inference and
+training (output layers score through ``losses.py``). Any other layer
+type found in a configuration raises :class:`NotYetPorted` naming the
+type, and so does training a layer whose ``dropout`` is above 0.
 """
 
 from __future__ import annotations
@@ -117,6 +118,10 @@ class Layer:
     def init_params(self, gen, policy=None, device="cpu") -> Dict[str, torch.Tensor]:
         return {}
 
+    def regularized_params(self) -> Tuple[str, ...]:
+        """Params l1/l2 apply to (the reference's weights-only rule)."""
+        return ("W",)
+
     # ---- forward ----
     def apply(self, params, x, *, state=None, mask=None, policy=None):
         raise NotImplementedError
@@ -173,10 +178,18 @@ class FeedForwardLayer(Layer):
 
 @dataclasses.dataclass
 class BaseOutputLayer(FeedForwardLayer):
-    """Output layer with a loss function (the loss is used by training,
-    which comes with the next slice)."""
+    """Output layer with a loss function."""
 
     loss: str = "negativeloglikelihood"
+
+    def compute_score_array(self, params, x, labels, *, mask=None,
+                            policy=None):
+        """Per-example loss from the hidden input ``x`` (the pre-output is
+        scored fused with the activation, as in the reference)."""
+        from ... import losses as _losses
+        pre = self.pre_output(params, x, policy=policy)
+        return _losses.score_array(self.loss, labels, pre,
+                                   self.activation or "sigmoid", mask)
 
 
 @register_layer("rnn_output")
@@ -287,6 +300,9 @@ class LayerNormalization(Layer):
 
     def param_shapes(self, policy=None):
         return {"gamma": (self.n_out,), "beta": (self.n_out,)}
+
+    def regularized_params(self) -> Tuple[str, ...]:
+        return ()
 
     def init_params(self, gen, policy=None, device="cpu"):
         dt = (policy or _dtypes.FLOAT32).param_dtype

@@ -3,14 +3,12 @@ its ``util/serialization.py``).
 
 The artifact is a zip holding ``configuration.json``, ``arrays.npz``
 (every leaf under a path key: ``params/<vertex>/<name>``,
-``state/...``, ``updater/...``), ``training_state.json`` (counters and the
-model class), ``dtypes.json`` (original dtype names of arrays stored
-widened to float32, e.g. ``bfloat16``) and ``checksums.json`` (sha256 of
-every other entry). A zip written by either package loads in the other.
-
-The updater is ported with the training slice; until then a loaded
-checkpoint's ``updater/...`` arrays ride along untouched and are written
-back by :func:`save_model`.
+``state/...``, ``updater/<rule key>/<vertex>/<name>``),
+``training_state.json`` (counters and the model class), ``dtypes.json``
+(original dtype names of arrays stored widened to float32, e.g.
+``bfloat16``) and ``checksums.json`` (sha256 of every other entry). A zip
+written by either package loads in the other, the optimizer state
+included, so training resumes across them.
 """
 
 from __future__ import annotations
@@ -136,13 +134,47 @@ def load_model(path: str, device="cuda"):
             vertex, _, name = rest.partition("/")
             net.state.setdefault(vertex, {})[name] = _tensor(
                 a, dtype_map.get(key)).to(net.device)
+    net.init_updater()
     if training_state.get("has_updater"):
-        net.updater_arrays = {k: a for k, a in arrays.items()
-                              if k.startswith("updater/")}
+        _restore_updater(net, {k: a for k, a in arrays.items()
+                               if k.startswith("updater/")})
     net.iteration_count = training_state.get("iteration_count", 0)
     net.epoch_count = training_state.get("epoch_count", 0)
     net._update_count = training_state.get("update_count", 0)
     return net
+
+
+def _flatten(prefix: str, tree, out: Dict[str, torch.Tensor]) -> None:
+    """Path-keyed leaves of a nested-dict tree (the reference's
+    ``_flatten``; '/' in keys is reserved)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if "/" in str(k):
+                raise ValueError(f"'/' not allowed in checkpoint key: {k!r}")
+            _flatten(f"{prefix}/{k}", v, out)
+    elif tree is not None:
+        out[prefix] = tree
+
+
+def _restore_updater(net, arrays: Dict[str, np.ndarray]) -> None:
+    """Fill ``net.updater_state`` (freshly initialised, the template) from
+    a checkpoint's ``updater/...`` arrays, path by path; every leaf must be
+    present with its shape, and nothing else."""
+    template: Dict[str, torch.Tensor] = {}
+    _flatten("updater", net.updater_state, template)
+    if set(arrays) != set(template):
+        raise ValueError(
+            "updater state mismatch: the checkpoint has "
+            f"{sorted(set(arrays) - set(template))[:5]} the model lacks and "
+            f"lacks {sorted(set(template) - set(arrays))[:5]} — was the "
+            "configuration changed?")
+    with torch.no_grad():
+        for key, t in template.items():
+            a = torch.from_numpy(np.asarray(arrays[key], dtype=np.float32))
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(f"{key}: shape {tuple(a.shape)}, expected "
+                                 f"{tuple(t.shape)}")
+            t.copy_(a)
 
 
 def _numpy(t: torch.Tensor, key: str, dtype_map: Dict[str, str]) -> np.ndarray:
@@ -167,9 +199,12 @@ def save_model(net, path: str, save_updater: bool = True) -> None:
         for name, t in st.items():
             key = f"state/{vertex}/{name}"
             arrays[key] = _numpy(t, key, dtype_map)
-    has_updater = bool(save_updater and net.updater_arrays)
+    has_updater = bool(save_updater and net.updater_state is not None)
     if has_updater:
-        arrays.update(net.updater_arrays)
+        leaves: Dict[str, torch.Tensor] = {}
+        _flatten("updater", net.updater_state, leaves)
+        for key, t in leaves.items():
+            arrays[key] = _numpy(t, key, dtype_map)
     buf = io.BytesIO()
     np.savez(buf, **arrays)
     training_state = {

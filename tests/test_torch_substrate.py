@@ -47,7 +47,7 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "deeplearning4j_tpu" or m.startswith("deeplearning4j_tpu."))
-print(len(names), bad)
+print(len(names), sorted(names), bad, sep="\n")
 """
 
 
@@ -58,8 +58,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=300,
                          env=env)
     assert res.returncode == 0, res.stderr
-    n, bad = res.stdout.split(" ", 1)
+    n, names, bad = res.stdout.strip().split("\n")
     assert int(n) >= 20                       # the server and ops included
+    for mod in ("losses", "optimize.updaters", "ops.flash_attention",
+                "nn.graph_runtime", "util.serialization"):
+        assert f"'deeplearning4j_tpu_torch.{mod}'" in names, mod
     assert bad.strip() == "[]", bad
 
 
@@ -86,9 +89,15 @@ def test_reference_checkpoint_loads_bit_identical(tmp_path):
     for key in want:
         assert got[key].dtype == want[key].dtype
         assert np.array_equal(got[key], want[key]), key
-    # the reference's adam state rides along untouched
-    assert tnet.updater_arrays and all(
-        k.startswith("updater/") for k in tnet.updater_arrays)
+    # the reference's adam state becomes the port's updater state, leaf
+    # for leaf at the same paths
+    assert set(tnet.updater_state) == {"m", "v"}
+    for rule, tree in tnet.updater_state.items():
+        for v, ps in tree.items():
+            for k, t in ps.items():
+                want = np.asarray(jnet.updater_state[rule][v][k])
+                assert t.dtype == torch.float32
+                assert np.array_equal(t.numpy(), want), (rule, v, k)
 
 
 def test_port_checkpoint_loads_in_the_reference(tmp_path):
