@@ -7,7 +7,10 @@ Phases, in order; any failure propagates and the script exits non-zero:
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: both kernel sources from deeplearning4j_tpu_torch/ops/csrc, one
    nvcc each, all at once (a second run reuses the builds); each one's
-   build seconds, registers and spills;
+   build seconds, registers and spills (``-Xptxas -v``); the SASS of the
+   backward library (``cuobjdump -sass``): per kernel the counts of HGMMA
+   (wgmma), UTMALDG (TMA tile loads), UBLKCP (bulk copies) and LDGSTS
+   (cp.async) — a bf16 dq or dk/dv instance without HGMMA fails the run;
 3. forward kernel vs plain: the flash-attention forward kernel against its
    plain PyTorch version on the same inputs on the card, over head dims,
    dtypes, causal or not, masks (including fully masked rows) and lengths;
@@ -15,9 +18,11 @@ Phases, in order; any failure propagates and the script exits non-zero:
    and torch's scaled_dot_product_attention (timed only as a yardstick);
 4. backward kernels vs plain: the Δ preprocess, dq and fused dk/dv kernels
    against the plain backward over the same 48 cases (dq, dk, dv and Δ;
-   exact zeros for masked keys and rows with no key); then each kernel
-   timed at the flagship shape beside the plain backward, its bound, and
-   the backward of scaled_dot_product_attention (a yardstick only);
+   exact zeros for masked keys and rows with no key); then, at the flagship
+   shape, two launches of the backward must give bitwise equal dq, dk and
+   dv, and each kernel is timed beside the plain backward, its bound (and
+   its share of it), and the backward of scaled_dot_product_attention (a
+   yardstick only; dq + dk/dv is reported as a ratio of it);
 5. forward main path: the flagship transformer LM (d_model 768, 12
    layers, 12 heads, d_ff 3072, V 32768, mixed_bf16) built and initialised
    by the port on the card, one forward over [8, 2048] ids through the
@@ -45,6 +50,8 @@ Imports nothing of JAX or of the JAX package.
 import contextlib
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -63,6 +70,7 @@ from deeplearning4j_tpu_torch.nn.graph_runtime import ComputationGraph  # noqa: 
 from deeplearning4j_tpu_torch.ops import _nvcc  # noqa: E402
 from deeplearning4j_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from deeplearning4j_tpu_torch.serving import InferenceServer  # noqa: E402
+from pathlib import Path  # noqa: E402
 
 SEED = 20261016
 DEV = torch.device("cuda")
@@ -133,6 +141,100 @@ TRAIN_K = 8          # bench.py's fit_repeated(k) rounds
 TRAIN_ROUNDS = 2
 FLAGSHIP = {"V": 32768, "L": 12, "D": 768, "H": 12, "F": 3072, "T": 2048,
             "B": 8}
+
+
+# SASS opcodes counted per kernel: wgmma, TMA tile loads, bulk copies and
+# cp.async
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS")
+# the bf16 instances of the backward kernels, which must run on wgmma
+WGMMA_KERNELS = {"flash_bwd_dq": ("flash_bwd_dq_bf16<64>",
+                                  "flash_bwd_dq_bf16<128>"),
+                 "flash_bwd_dkv": ("flash_bwd_dkv_bf16<64,64>",
+                                   "flash_bwd_dkv_bf16<128,32>")}
+
+
+def kernel_label(mangled: str) -> str:
+    """'flash_bwd_dkv_bf16<64,64>' for a mangled kernel name: its base name
+    and its integer (or f32/bf16 type) template arguments."""
+    head, sep, tail = mangled.partition("_kernelI")
+    if not sep or "flash_" not in head:
+        return mangled
+    targs = tail.split("EEv", 1)[0]
+    args = re.findall(r"Li(\d+)E", targs) or [
+        "bf16" if "bfloat16" in targs else "f32"]
+    return f"{head[head.rindex('flash_'):]}<{','.join(args)}>"
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel label: {"registers": n, "spill_store_bytes": n}} from the
+    ``-Xptxas -v`` output of a build."""
+    report, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = report.setdefault(kernel_label(m.group(1)), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and cur is not None:
+            cur["spill_store_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return report
+
+
+def sass_counts(library: Path):
+    """{kernel label: {opcode: count}} over SASS_OPS from ``cuobjdump -sass``
+    of a built library, and the number of registers its code names; None
+    where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or str(Path(_nvcc.nvcc_path()).parent
+                                             / "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        c = {op: len(re.findall(r"\b" + op + r"\b", part)) for op in SASS_OPS}
+        # registers the code names: above ptxas's count at entry only where
+        # a warpgroup raised its budget (setmaxnreg)
+        regs = [int(r) for r in re.findall(r"\bR(\d+)\b", part)]
+        c["registers_named"] = max(regs) + 1 if regs else 0
+        counts[kernel_label(name)] = c
+    return counts
+
+
+def phase_build():
+    """Build every kernel source; print build seconds, each kernel's
+    registers and spills and the compiler's performance warnings, and the
+    SASS opcode counts of the backward library. Returns the backward
+    library's {label: {registers, spill bytes, opcode counts}}."""
+    _nvcc.build_all()       # one nvcc per source, all at once
+    for lib in _nvcc.LIBRARIES.values():
+        print(f"build {lib.name}: {lib.build_seconds:.3f} s -> "
+              f"{lib.library_path()}")
+        for label, r in ptxas_report(lib.build_log).items():
+            print(f"  {label}: {r.get('registers')} registers, "
+                  f"{r.get('spill_store_bytes')} bytes spill stores")
+        for ln in lib.build_log.splitlines():
+            if "Performance" in ln or "setmaxnreg" in ln:
+                print(f"  {ln.strip()}")
+    lib = _nvcc.LIBRARIES["flash_bwd"]
+    report = ptxas_report(lib.build_log)
+    counts = sass_counts(lib.library_path())
+    if counts is None:
+        print("sass: cuobjdump not found; the opcode check is skipped")
+        return report
+    for label, c in counts.items():
+        report.setdefault(label, {}).update(c)
+        print(f"sass {label}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
+    for labels in WGMMA_KERNELS.values():
+        for label in labels:
+            if counts.get(label, {}).get("HGMMA", 0) == 0:
+                raise AssertionError(f"{label} has no HGMMA (wgmma) in its "
+                                     "SASS")
+    return report
 
 
 def card_line() -> str:
@@ -650,7 +752,7 @@ def bwd_bounds(b, t, h, d, itemsize):
     return res
 
 
-def phase_bwd_timing():
+def phase_bwd_timing(build):
     b, t, h = (FLAGSHIP[k] for k in "BTH")
     d = FLAGSHIP["D"] // h
     gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
@@ -667,6 +769,15 @@ def phase_bwd_timing():
     if not (max(r for _, r in errs) <= 1.0 and e_delta <= TOL_DELTA):
         raise AssertionError(f"flagship-shape backward error {errs}, "
                              f"dDelta {e_delta}")
+    # each block owns its output tile (no atomics): a second launch on the
+    # same inputs must give the same bits
+    again = fa.flash_attention_bwd(q, k, v, None, out, lse, dout, causal=True)
+    same = [torch.equal(x, y) for x, y in zip(grads, again)]
+    print(f"flash backward determinism at [b={b}, t={t}, h={h}, d={d}]: "
+          f"dq/dk/dv bitwise equal over two launches: {same}")
+    if not all(same):
+        raise AssertionError("the backward kernels are not deterministic")
+    del again
     scale = 1.0 / d ** 0.5
     ms = {"flash_bwd_preprocess": cuda_ms(
               lambda: fa._flash_bwd_preprocess_cuda(out, dout), 20),
@@ -689,6 +800,7 @@ def phase_bwd_timing():
     for kn, n in zip(KERNELS, before):   # timing launches do not count
         kn.launches = n
     bounds = bwd_bounds(b, t, h, d, 2)
+    ratio = (ms["flash_bwd_dq"] + ms["flash_bwd_dkv"]) / sdpa_bwd_ms
     res = {}
     for name, err, plain, lib in (
             ("flash_bwd_preprocess", e_delta, plain_delta_ms, vecdot_ms),
@@ -696,17 +808,23 @@ def phase_bwd_timing():
             ("flash_bwd_dkv", max(errs[1][0], errs[2][0]), plain_ms, None)):
         res[name] = {"max_abs_err": err, "ms": ms[name], "plain_ms": plain,
                      "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                     "bound_share": bounds[name][0] / ms[name],
                      "library_ms": lib}
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for name, labels in WGMMA_KERNELS.items():
         res[name]["plain_computes"] = "dq, dk and dv"
         res[name]["sdpa_backward_ms"] = sdpa_bwd_ms
+        res[name]["dq_plus_dkv_over_sdpa_backward"] = ratio
+        res[name]["instances"] = {label: build.get(label, {})
+                                  for label in labels}
     res["flash_bwd_preprocess"]["library_call"] = "torch.linalg.vecdot"
     total = sum(ms.values())
     print(f"flash backward at [b={b}, t={t}, h={h}, d={d}] causal bf16: "
           + "; ".join(f"{n} {ms[n]:.4f} ms (bound {bounds[n][0]:.4f} ms, "
-                      f"{bounds[n][1]})" for n in ms)
-          + f"; the three {total:.4f} ms against the backward of "
-          f"scaled_dot_product_attention {sdpa_bwd_ms:.4f} ms; plain backward "
+                      f"{bounds[n][1]}; {100 * bounds[n][0] / ms[n]:.1f}% "
+                      "of it)" for n in ms)
+          + f"; dq + dk/dv {ms['flash_bwd_dq'] + ms['flash_bwd_dkv']:.4f} ms "
+          f"= {ratio:.3f}x the backward of scaled_dot_product_attention "
+          f"({sdpa_bwd_ms:.4f} ms); the three {total:.4f} ms; plain backward "
           f"{plain_ms:.4f} ms, plain Delta {plain_delta_ms:.4f} ms, vecdot "
           f"{vecdot_ms:.4f} ms; max|d| vs plain dq/dk/dv "
           + ", ".join(f"{e:.6g} ({r:.4g} of its bound)" for e, r in errs)
@@ -897,19 +1015,12 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
 
-    _nvcc.build_all()       # one nvcc per source, all at once
-    for lib in _nvcc.LIBRARIES.values():
-        print(f"build {lib.name}: {lib.build_seconds:.3f} s -> "
-              f"{lib.library_path()}")
-        for ln in lib.build_log.splitlines():   # per kernel: registers, spills
-            if "Compiling entry function" in ln or "registers" in ln \
-                    or "spill" in ln:
-                print(f"  {ln.strip()}")
+    build = phase_build()
 
     phase_kernel_vs_plain()
     timing = phase_flagship_kernel_timing()
     phase_bwd_kernel_vs_plain()
-    bwd_timing = phase_bwd_timing()
+    bwd_timing = phase_bwd_timing(build)
     net, fwd_launches = phase_main_path()
     phase_server(net)
     train_launches = phase_training(net)

@@ -17,8 +17,8 @@
 //   dS = P * (dO V^T - Delta) * scale.
 // Masked keys get dk = dv = 0 exactly and a query row with no attendable key
 // gets dq = 0 exactly (P = 0 there, so every term added is an exact zero).
-// Two passes and no atomics, as in the reference, so the gradients are
-// deterministic.
+// Two passes and no atomics, as in the reference: each block owns its output
+// tile, so the gradients are bitwise deterministic.
 //
 // Inputs: q, k, v, dO as [b, t, h, d] strided views (head dim contiguous; the
 // attention layer's q/k/v are slices of one qkv projection, read in place),
@@ -26,45 +26,65 @@
 // [b, t] f32 key mask (key valid iff > 0). Outputs dq, dk, dv contiguous
 // [b, t, h, d] in the input dtype, accumulated in f32.
 //
-// Design. On the TPU the two Pallas kernels carry their accumulator across a
-// sequential grid dimension. Here blocks run in no order, so each block owns
-// its output tile and loops over the other axis itself, accumulating in
-// registers:
-//   * dq: one block per (b*h, 64-row q tile), looping over 64-key tiles up to
-//     the causal diagonal; q tiles are scheduled heaviest first.
-//   * dk/dv: one block per (b*h, 64-key tile), looping over q tiles from the
-//     diagonal on (pre-diagonal q tiles are skipped, loads and math, as the
-//     reference's clamped index map skips their loads). P and dS are computed
-//     once per tile and feed both dk and dv. The warp computes the transposed
-//     tile S^T = K Q^T, so its P^T and dS^T accumulators are directly the A
-//     fragments of the dv and dk products.
-//   * bf16: 4 warps of 16 rows; S, dP, dq, dk and dv run on the tensor cores
-//     with mma.sync m16n8k16 (bf16 in, f32 accumulate). P and dS are rounded
-//     to bf16 for the dq, dk and dv products (flash_attention.
-//     bf16_grad_tolerance bounds what that rounding costs). Tiles that a
-//     product reads along its reduction axis are staged transposed in shared
-//     memory, so every fragment is one 32-bit load from a padded,
-//     conflict-free row.
-//   * f32: one thread per row on the CUDA cores (fp32 FMA, no TF32), so the
-//     f32 gradients keep full f32 precision.
-//
 // Bound at the flagship shape (b=8, h=12, t=2048, d=64, causal, bf16;
 // b*h*t*(t+1)/2 = 201M attended pairs): dq does S, dP and dS K, 3 products of
 // 2*d FLOPs per pair = 77 GFLOP, 78 us at 989 TFLOP/s; dk/dv does S, dP, dS^T Q
 // and P^T dO = 103 GFLOP, 104 us. Each moves about 0.1-0.2 GB (about 40-60 us
-// at 3.35 TB/s), so both are compute-bound. The preprocess reads O and dO
-// (50 MB) and writes Delta (0.8 MB): memory-bound, about 15 us. This simple
-// version (synchronous loads, no TMA, no wgmma, no pipelining) does not reach
-// those bounds; PERF.md records its times. One main-path training step of the
+// at 3.35 TB/s), so both are compute-bound: what matters is keeping the
+// tensor cores fed. The preprocess reads O and dO (50 MB) and writes Delta
+// (0.8 MB): memory-bound, about 15 us. One main-path training step of the
 // flagship launches each entry 12 times, once per layer.
+//
+// Design of the bf16 kernels (d = 64 or 128). On the TPU the two Pallas
+// kernels carry their accumulator across a sequential grid dimension. Here
+// blocks run in no order, so each block owns an output tile and loops over
+// the other axis itself, accumulating in registers. A block is 384 threads:
+// two consumer warpgroups (64 output rows each, 232 registers a thread) and
+// a producer warpgroup that gives its registers back (setmaxnreg, 40).
+//   * Loads: the producer's first thread feeds a ring of STAGES shared-
+//     memory stages with TMA (cp.async.bulk.tensor, 128-byte swizzle) on
+//     full/empty mbarriers, so the next tiles are in flight while the
+//     consumers compute. One 4-D tensor map per operand over its strided
+//     [b, t, h, d] view (dims d, h, t, b; a box of 64 columns x 1 x rows x 1;
+//     d = 128 takes two boxes), so the qkv slices are read in place.
+//   * Products: every product is a warpgroup wgmma (m64nNk16, bf16 in, f32
+//     accumulate). The first two (S and dP, or their transposes) read both
+//     operands from shared memory, K-major. P and dS, rounded to bf16, stay
+//     in registers: the accumulator layout of m64nN is the A-fragment layout
+//     of the next product, so they are its A operand directly. Its B operand
+//     (dO, Q or K, stored row by row as the TMA wrote it) is read MN-major
+//     through the descriptor's transpose bit: no transposed copy exists.
+//   * dq: one block per (b*h, 128-row q tile), heaviest tiles first under
+//     causal; Q, dO, lse and Delta are loaded once; the ring streams 64-key
+//     (K, V) tiles up to the causal diagonal.
+//   * dk/dv: one block per (b*h, 128-key tile); K and V are loaded once; the
+//     ring streams (Q, dO, lse, Delta) tiles of BQ queries from the causal
+//     diagonal on (pre-diagonal q tiles are skipped, loads and math, as the
+//     reference's clamped index map skips their loads). The consumers compute
+//     S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T come out in the rows of
+//     their own keys, then dv += P^T dO and dk += dS^T Q.
+//   * The mask, causal and dead-row predicates run only on diagonal tiles or
+//     when a key mask is given; elsewhere P = exp2(S * scale * log2 e -
+//     lse * log2 e) with no test (one MUFU.EX2). The elementwise work per
+//     score shares the SM with the other warpgroup's products, so it is
+//     kept short: dS is formed without the softmax scale, which dq and dk
+//     take once in the epilogue (exact at d = 64, where it is 2^-3).
+//   * Epilogue: each warpgroup stages its gradient tile in bf16 in the
+//     shared memory of its own (finished) K/V or Q/dO rows, swizzled, and
+//     writes it out with 16-byte stores.
+//   * f32: one thread per row on the CUDA cores (fp32 FMA, no TF32), so the
+//     f32 gradients keep full f32 precision. They serve the card tests, not
+//     the main path.
 
-#include <cuda_runtime.h>
+#include <cuda.h>          // CUtensorMap and its enums; the encoder is looked
+#include <cuda_runtime.h>  // up at run time, so the library needs no -lcuda
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr float HALF_NEG = -5e29f;   // NEG_INF / 2, NEG_INF = -1e30
+constexpr float LOG2E = 1.4426950408889634f;
 
 typedef __nv_bfloat16 bf16;
 
@@ -87,77 +107,263 @@ struct BwdParams {
   int causal;
 };
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
-// The A fragment (16 rows x 16 columns) at rows r0.., columns c0.. of a
-// row-major bf16 tile with row pitch `pitch`.
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* tile,
-                                       int pitch, int r0, int c0, int g,
-                                       int t4) {
-  a[0] = ld32(&tile[(r0 + g) * pitch + c0 + 2 * t4]);
-  a[1] = ld32(&tile[(r0 + g + 8) * pitch + c0 + 2 * t4]);
-  a[2] = ld32(&tile[(r0 + g) * pitch + c0 + 8 + 2 * t4]);
-  a[3] = ld32(&tile[(r0 + g + 8) * pitch + c0 + 8 + 2 * t4]);
+// ---------------------------------------------------------------------------
+// Hopper primitives: shared-memory access, mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// acc += A B for one 16x8 output tile, B read from the tile stored [n][k]
-// (row n of `tile` holds B's column n along the reduction axis).
-__device__ __forceinline__ void mma_nk(float* acc, const uint32_t* a,
-                                       const bf16* tile, int pitch, int n0,
-                                       int k0, int g, int t4) {
-  const bf16* r = &tile[(n0 + g) * pitch + k0 + 2 * t4];
-  mma_bf16(acc, a, ld32(r), ld32(r + 8));
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
-// Two neighbouring 16x8 accumulator tiles, rounded to bf16, are exactly the
-// A fragment of one 16-wide reduction chunk.
-__device__ __forceinline__ void acc_to_a(uint32_t* a, const float* lo,
-                                         const float* hi) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
-// Rows [r0, r0 + rows) of a strided [t, d] bf16 head into a padded smem tile
-// (16-byte chunks); with `tr`, also its transpose [d][rows + 8].
-template <int D>
-__device__ __forceinline__ void stage_rows(bf16* dst, bf16* tr, int tr_pitch,
-                                           const bf16* src, long long st,
-                                           int r0, int rows) {
-  constexpr int DP = D + 8;
-  constexpr int CH = D / 8;
-  for (int c = threadIdx.x; c < rows * CH; c += blockDim.x) {
-    const int r = c / CH, cc = (c % CH) * 8;
-    const uint4 raw =
-        *reinterpret_cast<const uint4*>(&src[(long long)(r0 + r) * st + cc]);
-    *reinterpret_cast<uint4*>(&dst[r * DP + cc]) = raw;
-    if (tr != nullptr) {
-      const bf16* e = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) tr[(cc + i) * tr_pitch + r] = e[i];
-    }
+__device__ __forceinline__ float2 ld_shared_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// One arrival that also announces `bytes` of TMA traffic to wait for.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A wait that never
+// ends (a broken pipeline) traps after about 2^28 polls, seconds at least,
+// so it surfaces as a launch error instead of a hung card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 28)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
 }
+
+// One box of a 4-D tensor map (coordinates innermost first: d, h, t, b) into
+// shared memory; completion is counted on `bar` in bytes.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(bar)
+      : "memory");
+}
+
+// A contiguous run of `bytes` (a multiple of 16, 16-byte aligned) into
+// shared memory, counted on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Named barrier over the 128 threads of one consumer warpgroup (ids 1, 2).
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x with one MUFU.EX2; results below 2^-126 flush to 0 (P that small
+// adds nothing a bf16 gradient can hold).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Pin registers that an asynchronous wgmma reads or writes, so the compiler
+// moves no access to them across the wgmma fence, commit and wait.
+template <int R>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// wgmma shared-memory descriptor of a tile written by TMA with 128-byte
+// swizzle (rows of 128 bytes, 8-row atoms of 1024 bytes, 1024-byte aligned).
+// K-major: `addr` steps 32 bytes per 16-element k step; `lbo` is unused.
+// MN-major: `addr` steps 8 rows (1024 bytes, the SBO) per 8 k rows and `lbo`
+// is the distance between 64-element chunks of the MN dimension.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// The k-th 16-column step of a K-major tile of `rows` rows stored as D/64
+// column halves of rows x 128 bytes each.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows,
+                                                int kk) {
+  return sw128_desc(tile + (kk >> 2) * rows * 128 + (kk & 3) * 32, 16);
+}
+
+// The k-th 16-row step of a tile read MN-major (its D columns are N).
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int rows,
+                                                 int kk) {
+  return sw128_desc(tile + kk * 16 * 128, rows * 128);
+}
+
+// d (64 x 32, f32) (+)= A B, A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a, uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64, f32) (+)= A B, A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64, f32) += A B, A (64 x 16 bf16) from registers in the
+// accumulator layout, B from shared memory, MN-major (the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128, f32) += A B, A (64 x 16 bf16) from registers in the
+// accumulator layout, B from shared memory, MN-major (the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int N> struct Wgmma;
+template <> struct Wgmma<32> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int scale_d) {
+    wgmma_ss_n32(d, a, b, scale_d);
+  }
+};
+template <> struct Wgmma<64> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int scale_d) {
+    wgmma_ss_n64(d, a, b, scale_d);
+  }
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a,
+                                            uint64_t b) {
+    wgmma_rs_n64(d, a, b);
+  }
+};
+template <> struct Wgmma<128> {
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a,
+                                            uint64_t b) {
+    wgmma_rs_n128(d, a, b);
+  }
+};
 
 // ---------------------------------------------------------------------------
 // Delta = rowsum(dO * O): one warp per (b, t, h) row
@@ -189,248 +395,486 @@ flash_bwd_preprocess_kernel(const T* out, long long o_sb, long long o_st,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core kernels
+// bf16: warp-specialised wgmma kernels fed by TMA
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 64;   // query rows per dq block (4 warps x 16)
-constexpr int BK = 64;   // keys per k tile (dq) and per dk/dv block
+constexpr int CONSUMERS = 256;             // two warpgroups of 64 rows each
+constexpr int THREADS = CONSUMERS + 128;   // and a producer warpgroup
+constexpr int STAGES = 3;                  // depth of the TMA ring
+constexpr int ROWS = 128;                  // output rows per block
+constexpr int KT = 64;                     // keys per streamed dq tile
 
+constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Shared memory of the dq kernel (byte offsets from a 1024-aligned base).
+// A tile of r rows is D/64 column halves of r x 128 bytes.
 template <int D>
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_bf16_kernel(BwdParams p) {
-  constexpr int DP = D + 8;    // padded row of a row-major tile
-  constexpr int TP = BK + 8;   // padded row of the transposed K tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [BQ][DP]
-  bf16* dOs = Qs + BQ * DP;                        // [BQ][DP]
-  bf16* Ks = dOs + BQ * DP;                        // [BK][DP]
-  bf16* Vs = Ks + BK * DP;                         // [BK][DP]
-  bf16* Kt = Vs + BK * DP;                         // [D][TP]
+struct DqSmem {
+  static constexpr int Q = 0;                        // [ROWS] rows
+  static constexpr int O = Q + ROWS * D * 2;         // dO, [ROWS] rows
+  static constexpr int STAGE0 = O + ROWS * D * 2;
+  static constexpr int K = 0, V = KT * D * 2;        // within a stage
+  static constexpr int STAGE = 2 * KT * D * 2;
+  static constexpr int BARS = STAGE0 + STAGES * STAGE;
+  static constexpr int BYTES = BARS + (2 * STAGES + 1) * 8 + 1024;
+};
 
-  const int n_qt = p.t / BQ;
-  const int qt = p.causal ? (n_qt - 1 - (int)blockIdx.y) : (int)blockIdx.y;
-  const int bh = blockIdx.x;
-  const int bi = bh / p.h;
-  const int hi = bh % p.h;
-  const int q0 = qt * BQ;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;   // fragment row within the 8-row group
-  const int t4 = lane & 3;   // fragment column pair
+// Shared memory of the dk/dv kernel: K and V once, then a ring of
+// (Q, dO, lse, Delta) stages of BQ queries.
+template <int D, int BQ>
+struct DkvSmem {
+  static constexpr int K = 0;                        // [ROWS] keys
+  static constexpr int V = K + ROWS * D * 2;
+  static constexpr int STAGE0 = V + ROWS * D * 2;
+  static constexpr int Q = 0, O = BQ * D * 2;        // within a stage
+  static constexpr int LSE = 2 * BQ * D * 2, DL = LSE + BQ * 4;
+  static constexpr int STAGE = round_up(DL + BQ * 4, 1024);
+  static constexpr int TX = 2 * BQ * D * 2 + 2 * BQ * 4;   // bytes per stage
+  static constexpr int BARS = STAGE0 + STAGES * STAGE;
+  static constexpr int BYTES = BARS + (2 * STAGES + 1) * 8 + 1024;
+};
 
-  const bf16* qg = static_cast<const bf16*>(p.q) + bi * p.q_sb + hi * p.q_sh;
-  const bf16* kg = static_cast<const bf16*>(p.k) + bi * p.k_sb + hi * p.k_sh;
-  const bf16* vg = static_cast<const bf16*>(p.v) + bi * p.v_sb + hi * p.v_sh;
-  const bf16* dog =
-      static_cast<const bf16*>(p.dout) + bi * p.o_sb + hi * p.o_sh;
-  const float* mg = p.mask ? p.mask + (long long)bi * p.t : nullptr;
-
-  stage_rows<D>(Qs, nullptr, 0, qg, p.q_st, q0, BQ);
-  stage_rows<D>(dOs, nullptr, 0, dog, p.o_st, q0, BQ);
-
-  const int qr = warp * 16;          // this warp's first row in the tile
-  const int row[2] = {q0 + qr + g, q0 + qr + g + 8};
-  float lse[2], dl[2];
-  bool live[2];
+// The rows [r0, r0 + n) of one head of a strided view into a tile of n rows,
+// one TMA box per 64-column half.
+template <int D>
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map,
+                                          int n, int hi, int r0, int bi,
+                                          uint32_t bar) {
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    lse[hr] = p.lse[(long long)bh * p.t + row[hr]];
-    dl[hr] = p.delta[(long long)bh * p.t + row[hr]];
-    live[hr] = !(lse[hr] <= HALF_NEG);
-  }
+  for (int c = 0; c < D / 64; ++c)
+    tma_load_4d(dst + c * n * 128, map, c * 64, hi, r0, bi, bar);
+}
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+// The 16-byte chunk j (columns 8j..8j+7) of row r of a tile of n rows, with
+// the 128-byte swizzle (chunk index XOR row mod 8).
+__device__ __forceinline__ uint32_t chunk_addr(uint32_t tile, int n, int r,
+                                               int j) {
+  return tile + (j >> 3) * n * 128 + r * 128 + (((j & 7) ^ (r & 7)) << 4);
+}
 
-  const int n_kt = p.causal ? (q0 + BQ + BK - 1) / BK : p.t / BK;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();   // every warp is done with the previous K/V tile
-    stage_rows<D>(Ks, Kt, TP, kg, p.k_st, k0, BK);
-    stage_rows<D>(Vs, nullptr, 0, vg, p.v_st, k0, BK);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys
-    float s[BK / 8][4], dp[BK / 8][4];
+// A warpgroup's 64 x D f32 accumulator (wgmma layout) as bf16 into the
+// 64 rows of `tile` (a tile of n rows) at row r0, then out to the contiguous
+// [b, t, h, d] gradient, rows g0.. of head (bi, hi): 16-byte stores.
+template <int D>
+__device__ __forceinline__ void store_tile(const float* acc, uint32_t tile,
+                                           int n, int r0, bf16* out,
+                                           const BwdParams& p, int bi, int hi,
+                                           int g0, int wg) {
+  const int tw = threadIdx.x & 127;
+  const int warp = tw >> 5, g = (tw & 31) >> 2, t4 = tw & 3;
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = dp[j][0] = dp[j][1] =
-          dp[j][2] = dp[j][3] = 0.f;
+  for (int j = 0; j < D / 8; ++j)
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t qa[4], da[4];
-      load_a(qa, Qs, DP, qr, kc * 16, g, t4);
-      load_a(da, dOs, DP, qr, kc * 16, g, t4);
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        mma_nk(s[j], qa, Ks, DP, j * 8, kc * 16, g, t4);
-        mma_nk(dp[j], da, Vs, DP, j * 8, kc * 16, g, t4);
-      }
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = r0 + warp * 16 + g + 8 * hr;
+      st_shared_u32(chunk_addr(tile, n, r, j) + t4 * 4,
+                    pack_bf16(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]));
     }
-
-    // P from lse, then dS = P (dP - Delta) scale, kept in s
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = k0 + j * 8 + 2 * t4 + e;
-        const bool key_ok = mg == nullptr || mg[col] > 0.f;
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int i = 2 * hr + e;
-          const bool ok = key_ok && live[hr] && !(p.causal && col > row[hr]);
-          const float pv = ok ? expf(s[j][i] * p.scale - lse[hr]) : 0.f;
-          s[j][i] = pv * (dp[j][i] - dl[hr]) * p.scale;
-        }
-      }
-    }
-
-    // dq += dS K
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * kc], s[2 * kc + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) mma_nk(acc[n], a, Kt, TP, n * 8, kc * 16, g, t4);
-    }
-  }
-
-  bf16* dqg = static_cast<bf16*>(p.g0);
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    bf16* r = dqg + (((long long)bi * p.t + row[hr]) * p.h + hi) * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(&r[n * 8 + 2 * t4]) =
-          pack_bf16(acc[n][2 * hr], acc[n][2 * hr + 1]);
+  warpgroup_sync(wg);
+  for (int i = tw; i < 64 * D / 8; i += 128) {
+    const int r = i / (D / 8), j = i % (D / 8);
+    const uint4 v = ld_shared_v4(chunk_addr(tile, n, r0 + r, j));
+    *reinterpret_cast<uint4*>(
+        out + (((long long)bi * p.t + g0 + r) * p.h + hi) * D + j * 8) = v;
   }
 }
 
-// BQ2 query rows per step of the dk/dv loop: 64 at d = 64, 32 at d = 128 (the
-// dk and dv accumulators of d = 128 leave fewer registers for the S tile).
-template <int D, int BQ2>
-__global__ void __launch_bounds__(128)
-flash_bwd_dkv_bf16_kernel(BwdParams p) {
-  constexpr int DP = D + 8;
-  constexpr int TP = BQ2 + 8;   // padded row of the transposed Q / dO tiles
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // [BK][DP]
-  bf16* Vs = Ks + BK * DP;                         // [BK][DP]
-  bf16* Qs = Vs + BK * DP;                         // [BQ2][DP]
-  bf16* dOs = Qs + BQ2 * DP;                       // [BQ2][DP]
-  bf16* Qt = dOs + BQ2 * DP;                       // [D][TP]
-  bf16* dOt = Qt + D * TP;                         // [D][TP]
-  float* lse_s = reinterpret_cast<float*>(dOt + D * TP);   // [BQ2]
-  float* dl_s = lse_s + BQ2;                               // [BQ2]
-
-  const int k0 = (int)blockIdx.y * BK;   // causal: heaviest (k tile 0) first
-  const int bh = blockIdx.x;
-  const int bi = bh / p.h;
-  const int hi = bh % p.h;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-
-  const bf16* qg = static_cast<const bf16*>(p.q) + bi * p.q_sb + hi * p.q_sh;
-  const bf16* kg = static_cast<const bf16*>(p.k) + bi * p.k_sb + hi * p.k_sh;
-  const bf16* vg = static_cast<const bf16*>(p.v) + bi * p.v_sb + hi * p.v_sh;
-  const bf16* dog =
-      static_cast<const bf16*>(p.dout) + bi * p.o_sb + hi * p.o_sh;
-  const float* lg = p.lse + (long long)bh * p.t;
-  const float* dg = p.delta + (long long)bh * p.t;
-
-  stage_rows<D>(Ks, nullptr, 0, kg, p.k_st, k0, BK);
-  stage_rows<D>(Vs, nullptr, 0, vg, p.v_st, k0, BK);
-
-  const int kr = warp * 16;   // this warp's first key in the tile
-  const int key[2] = {k0 + kr + g, k0 + kr + g + 8};
-  bool key_ok[2];
+// Rounds the accumulator columns 16kc..16kc+15 to bf16: exactly the A
+// fragment of the k step kc of the next product.
+template <int N>
+__device__ __forceinline__ void acc_to_frags(uint32_t (*a)[4],
+                                             const float* acc) {
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr)
-    key_ok[hr] = p.mask == nullptr || p.mask[(long long)bi * p.t + key[hr]] > 0.f;
-
-  float dk[D / 8][4], dv[D / 8][4];
+  for (int kc = 0; kc < N / 16; ++kc)
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = dv[n][0] = dv[n][1] =
-        dv[n][2] = dv[n][3] = 0.f;
+    for (int i = 0; i < 4; ++i)
+      a[kc][i] = pack_bf16(acc[8 * kc + 2 * i], acc[8 * kc + 2 * i + 1]);
+}
 
-  for (int q0 = p.causal ? k0 : 0; q0 < p.t; q0 += BQ2) {
-    __syncthreads();   // every warp is done with the previous Q/dO tile
-    stage_rows<D>(Qs, Qt, TP, qg, p.q_st, q0, BQ2);
-    stage_rows<D>(dOs, dOt, TP, dog, p.o_st, q0, BQ2);
-    for (int i = threadIdx.x; i < BQ2; i += blockDim.x) {
-      lse_s[i] = lg[q0 + i];
-      dl_s[i] = dg[q0 + i];
+// Register budgets of the two roles (setmaxnreg): the producer warpgroup
+// gives back what the consumers take, 128 x (40 + 2 x 232) = 64,512 of the
+// SM's 65,536 registers.
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+// The warpgroup of this thread, broadcast from lane 0 so that the compiler
+// sees a warp-uniform value (setmaxnreg is applied only on such a branch).
+__device__ __forceinline__ int warpgroup_index() {
+  return __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+}
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+
+// The mbarriers of one block: a full and an empty barrier per ring stage,
+// and one for the operands loaded once.
+struct Bars {
+  uint32_t full, empty, once;
+  __device__ __forceinline__ explicit Bars(uint32_t at)
+      : full(at), empty(at + 8 * STAGES), once(at + 16 * STAGES) {}
+  __device__ __forceinline__ void init() const {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS);
     }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x BQ2 queries
-    float s[BQ2 / 8][4], dp[BQ2 / 8][4];
-#pragma unroll
-    for (int j = 0; j < BQ2 / 8; ++j)
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = dp[j][0] = dp[j][1] =
-          dp[j][2] = dp[j][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t ka[4], va[4];
-      load_a(ka, Ks, DP, kr, kc * 16, g, t4);
-      load_a(va, Vs, DP, kr, kc * 16, g, t4);
-#pragma unroll
-      for (int j = 0; j < BQ2 / 8; ++j) {
-        mma_nk(s[j], ka, Qs, DP, j * 8, kc * 16, g, t4);
-        mma_nk(dp[j], va, dOs, DP, j * 8, kc * 16, g, t4);
-      }
-    }
-
-    // P^T into s, dS^T into dp
-#pragma unroll
-    for (int j = 0; j < BQ2 / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int qi = j * 8 + 2 * t4 + e;
-        const float l = lse_s[qi];
-        const bool live = !(l <= HALF_NEG);
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int i = 2 * hr + e;
-          const bool ok =
-              key_ok[hr] && live && !(p.causal && key[hr] > q0 + qi);
-          const float pv = ok ? expf(s[j][i] * p.scale - l) : 0.f;
-          s[j][i] = pv;
-          dp[j][i] = pv * (dp[j][i] - dl_s[qi]) * p.scale;
-        }
-      }
-    }
-
-    // dv += P^T dO, dk += dS^T Q
-#pragma unroll
-    for (int kc = 0; kc < BQ2 / 16; ++kc) {
-      uint32_t pa[4], da[4];
-      acc_to_a(pa, s[2 * kc], s[2 * kc + 1]);
-      acc_to_a(da, dp[2 * kc], dp[2 * kc + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        mma_nk(dv[n], pa, dOt, TP, n * 8, kc * 16, g, t4);
-        mma_nk(dk[n], da, Qt, TP, n * 8, kc * 16, g, t4);
-      }
-    }
+    mbar_init(once, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+};
 
-  bf16* dkg = static_cast<bf16*>(p.g0);
-  bf16* dvg = static_cast<bf16*>(p.g1);
+// ---- dq --------------------------------------------------------------------
+
+template <int D>
+__device__ __forceinline__ void dq_produce(
+    uint32_t base, const Bars& bar, const CUtensorMap* tm_q,
+    const CUtensorMap* tm_k, const CUtensorMap* tm_v, const CUtensorMap* tm_o,
+    int q0, int n_kt, int bi, int hi) {
+  using L = DqSmem<D>;
+  mbar_expect_tx(bar.once, 2 * ROWS * D * 2);
+  load_rows<D>(base + L::Q, tm_q, ROWS, hi, q0, bi, bar.once);
+  load_rows<D>(base + L::O, tm_o, ROWS, hi, q0, bi, bar.once);
+  for (int i = 0; i < n_kt; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(bar.empty + 8 * s, ((i / STAGES) & 1) ^ 1);
+    const uint32_t st = base + L::STAGE0 + s * L::STAGE;
+    mbar_expect_tx(bar.full + 8 * s, L::STAGE);
+    load_rows<D>(st + L::K, tm_k, KT, hi, i * KT, bi, bar.full + 8 * s);
+    load_rows<D>(st + L::V, tm_v, KT, hi, i * KT, bi, bar.full + 8 * s);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void dq_consume(uint32_t base, const Bars& bar,
+                                           const BwdParams& p, int q0,
+                                           int n_kt, int bh, int bi, int hi) {
+  using L = DqSmem<D>;
+  // warpgroup wg owns query rows qw0 .. qw0 + 63
+  const int wg = threadIdx.x >> 7;
+  const int tw = threadIdx.x & 127;
+  const int warp = tw >> 5, g = (tw & 31) >> 2, t4 = tw & 3;
+  const int qw0 = q0 + wg * 64;
+  const float* mg = p.mask ? p.mask + (long long)bi * p.t : nullptr;
+  const float sl2 = p.scale * LOG2E;
+
+  int row[2];
+  float l2[2], dl[2];
+  bool live[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const long long off = (((long long)bi * p.t + key[hr]) * p.h + hi) * D;
+    row[hr] = qw0 + warp * 16 + g + 8 * hr;
+    const float lse = p.lse[(long long)bh * p.t + row[hr]];
+    dl[hr] = p.delta[(long long)bh * p.t + row[hr]];
+    live[hr] = !(lse <= HALF_NEG);
+    l2[hr] = lse * LOG2E;
+  }
+
+  float dq[D / 2];
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(&dkg[off + n * 8 + 2 * t4]) =
-          pack_bf16(dk[n][2 * hr], dk[n][2 * hr + 1]);
-      *reinterpret_cast<uint32_t*>(&dvg[off + n * 8 + 2 * t4]) =
-          pack_bf16(dv[n][2 * hr], dv[n][2 * hr + 1]);
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  const uint32_t aQ = base + L::Q + wg * 64 * 128;   // this warpgroup's rows
+  const uint32_t aO = base + L::O + wg * 64 * 128;
+  mbar_wait(bar.once, 0);
+
+  for (int i = 0; i < n_kt; ++i) {
+    const int s = i % STAGES;
+    const int k0 = i * KT;
+    mbar_wait(bar.full + 8 * s, (i / STAGES) & 1);
+    if (p.causal && k0 > qw0 + 63) {   // a tile wholly past the diagonal
+      mbar_arrive(bar.empty + 8 * s);
+      continue;
     }
+    const uint32_t sK = base + L::STAGE0 + s * L::STAGE + L::K;
+    const uint32_t sV = base + L::STAGE0 + s * L::STAGE + L::V;
+    float sacc[KT / 2], pacc[KT / 2];
+#pragma unroll
+    for (int j = 0; j < KT / 2; ++j) sacc[j] = pacc[j] = 0.f;
+    fence_regs<KT / 2>(sacc);
+    fence_regs<KT / 2>(pacc);
+    // S = Q K^T and dP = dO V^T, 64 rows x 64 keys each
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<KT>::ss(sacc, kmajor_desc(aQ, ROWS, kk), kmajor_desc(sK, KT, kk),
+                    kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<KT>::ss(pacc, kmajor_desc(aO, ROWS, kk), kmajor_desc(sV, KT, kk),
+                    kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();   // S is done; dP may still run
+    fence_regs<KT / 2>(sacc);
+
+    // P from lse; the predicates run only on the diagonal or with a mask
+    if (mg != nullptr || (p.causal && k0 + KT - 1 > qw0)) {
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = k0 + 8 * j + 2 * t4 + e;
+          const bool key_ok = mg == nullptr || mg[col] > 0.f;
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int x = 4 * j + 2 * hr + e;
+            const bool ok =
+                key_ok && live[hr] && !(p.causal && col > row[hr]);
+            sacc[x] = ok ? fast_exp2(fmaf(sacc[x], sl2, -l2[hr])) : 0.f;
+          }
+        }
+    } else {
+#pragma unroll
+      for (int x = 0; x < KT / 2; ++x)
+        sacc[x] = fast_exp2(fmaf(sacc[x], sl2, -l2[(x >> 1) & 1]));
+    }
+    wgmma_wait<0>();
+    fence_regs<KT / 2>(pacc);
+    // dS / scale = P (dP - Delta); dq is scaled once, in the epilogue
+#pragma unroll
+    for (int x = 0; x < KT / 2; ++x)
+      pacc[x] = sacc[x] * (pacc[x] - dl[(x >> 1) & 1]);
+
+    // dq += dS K: dS from registers, K read MN-major
+    uint32_t da[KT / 16][4];
+    acc_to_frags<KT>(da, pacc);
+    fence_regs<KT / 4>(&da[0][0]);
+    fence_regs<D / 2>(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < KT / 16; ++kc)
+      Wgmma<D>::rs(dq, da[kc], mnmajor_desc(sK, KT, kc));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<D / 2>(dq);
+    fence_regs<KT / 4>(&da[0][0]);
+    mbar_arrive(bar.empty + 8 * s);   // this stage is read no more
+  }
+
+  // epilogue: through this warpgroup's own Q rows, which no wgmma reads now
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] *= p.scale;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  store_tile<D>(dq, base + L::Q, ROWS, wg * 64, static_cast<bf16*>(p.g0), p,
+                bi, hi, qw0, wg);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_o,
+                         BwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const Bars bar(base + DqSmem<D>::BARS);
+  const int n_qt = p.t / ROWS;
+  const int qt = p.causal ? (n_qt - 1 - (int)blockIdx.y) : (int)blockIdx.y;
+  const int q0 = qt * ROWS;   // causal: heaviest q tiles first
+  const int bh = blockIdx.x;
+  const int n_kt = p.causal ? (q0 + ROWS) / KT : p.t / KT;
+
+  if (threadIdx.x == 0) bar.init();
+  __syncthreads();
+  if (warpgroup_index() == CONSUMERS / 128) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS)
+      dq_produce<D>(base, bar, &tm_q, &tm_k, &tm_v, &tm_o, q0, n_kt,
+                    bh / p.h, bh % p.h);
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    dq_consume<D>(base, bar, p, q0, n_kt, bh, bh / p.h, bh % p.h);
+  }
+}
+
+// ---- dk/dv -----------------------------------------------------------------
+
+template <int D, int BQ>
+__device__ __forceinline__ void dkv_produce(
+    uint32_t base, const Bars& bar, const CUtensorMap* tm_q,
+    const CUtensorMap* tm_k, const CUtensorMap* tm_v, const CUtensorMap* tm_o,
+    const BwdParams& p, int k0, int q_start, int n_tiles, int bh, int bi,
+    int hi) {
+  using L = DkvSmem<D, BQ>;
+  mbar_expect_tx(bar.once, 2 * ROWS * D * 2);
+  load_rows<D>(base + L::K, tm_k, ROWS, hi, k0, bi, bar.once);
+  load_rows<D>(base + L::V, tm_v, ROWS, hi, k0, bi, bar.once);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES;
+    const int q0 = q_start + i * BQ;
+    mbar_wait(bar.empty + 8 * s, ((i / STAGES) & 1) ^ 1);
+    const uint32_t st = base + L::STAGE0 + s * L::STAGE;
+    const uint32_t full = bar.full + 8 * s;
+    mbar_expect_tx(full, L::TX);
+    load_rows<D>(st + L::Q, tm_q, BQ, hi, q0, bi, full);
+    load_rows<D>(st + L::O, tm_o, BQ, hi, q0, bi, full);
+    bulk_load(st + L::LSE, p.lse + (long long)bh * p.t + q0, BQ * 4, full);
+    bulk_load(st + L::DL, p.delta + (long long)bh * p.t + q0, BQ * 4, full);
+  }
+}
+
+template <int D, int BQ>
+__device__ __forceinline__ void dkv_consume(uint32_t base, const Bars& bar,
+                                            const BwdParams& p, int k0,
+                                            int q_start, int n_tiles, int bi,
+                                            int hi) {
+  using L = DkvSmem<D, BQ>;
+  // warpgroup wg owns keys kw0 .. kw0 + 63
+  const int wg = threadIdx.x >> 7;
+  const int tw = threadIdx.x & 127;
+  const int warp = tw >> 5, g = (tw & 31) >> 2, t4 = tw & 3;
+  const int kw0 = k0 + wg * 64;
+  const float sl2 = p.scale * LOG2E;
+
+  int key[2];
+  bool key_ok[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    key[hr] = kw0 + warp * 16 + g + 8 * hr;
+    key_ok[hr] =
+        p.mask == nullptr || p.mask[(long long)bi * p.t + key[hr]] > 0.f;
+  }
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  const uint32_t aK = base + L::K + wg * 64 * 128;   // this warpgroup's keys
+  const uint32_t aV = base + L::V + wg * 64 * 128;
+  mbar_wait(bar.once, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES;
+    const int q0 = q_start + i * BQ;
+    mbar_wait(bar.full + 8 * s, (i / STAGES) & 1);
+    if (p.causal && q0 + BQ - 1 < kw0) {   // a tile wholly before the keys
+      mbar_arrive(bar.empty + 8 * s);
+      continue;
+    }
+    const uint32_t st = base + L::STAGE0 + s * L::STAGE;
+    const uint32_t sQ = st + L::Q, sO = st + L::O;
+    float sacc[BQ / 2], pacc[BQ / 2];
+#pragma unroll
+    for (int j = 0; j < BQ / 2; ++j) sacc[j] = pacc[j] = 0.f;
+    fence_regs<BQ / 2>(sacc);
+    fence_regs<BQ / 2>(pacc);
+    // S^T = K Q^T and dP^T = V dO^T, 64 keys x BQ queries each
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<BQ>::ss(sacc, kmajor_desc(aK, ROWS, kk), kmajor_desc(sQ, BQ, kk),
+                    kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<BQ>::ss(pacc, kmajor_desc(aV, ROWS, kk), kmajor_desc(sO, BQ, kk),
+                    kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();   // S^T is done; dP^T may still run
+    fence_regs<BQ / 2>(sacc);
+
+    // P^T from lse; the predicates run only on the diagonal or with a mask
+    const bool pred = p.mask != nullptr || (p.causal && q0 < kw0 + 63);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 l = ld_shared_f2(st + L::LSE + (8 * j + 2 * t4) * 4);
+      const float l2[2] = {l.x * LOG2E, l.y * LOG2E};
+      if (pred) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qi = q0 + 8 * j + 2 * t4 + e;
+          const bool live = !((e ? l.y : l.x) <= HALF_NEG);
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int x = 4 * j + 2 * hr + e;
+            const bool ok = key_ok[hr] && live && !(p.causal && key[hr] > qi);
+            sacc[x] = ok ? fast_exp2(fmaf(sacc[x], sl2, -l2[e])) : 0.f;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int x = 4 * j; x < 4 * j + 4; ++x)
+          sacc[x] = fast_exp2(fmaf(sacc[x], sl2, -l2[x & 1]));
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs<BQ / 2>(pacc);
+    // dS^T / scale = P^T (dP^T - Delta); dk is scaled once, in the epilogue
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 dl = ld_shared_f2(st + L::DL + (8 * j + 2 * t4) * 4);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int x = 4 * j + 2 * hr;
+        pacc[x] = sacc[x] * (pacc[x] - dl.x);
+        pacc[x + 1] = sacc[x + 1] * (pacc[x + 1] - dl.y);
+      }
+    }
+
+    // dv += P^T dO and dk += dS^T Q: A from registers, B read MN-major
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+    acc_to_frags<BQ>(pa, sacc);
+    acc_to_frags<BQ>(da, pacc);
+    fence_regs<BQ / 4>(&pa[0][0]);
+    fence_regs<BQ / 4>(&da[0][0]);
+    fence_regs<D / 2>(dv);
+    fence_regs<D / 2>(dk);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < BQ / 16; ++kc)
+      Wgmma<D>::rs(dv, pa[kc], mnmajor_desc(sO, BQ, kc));
+#pragma unroll
+    for (int kc = 0; kc < BQ / 16; ++kc)
+      Wgmma<D>::rs(dk, da[kc], mnmajor_desc(sQ, BQ, kc));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<D / 2>(dv);
+    fence_regs<D / 2>(dk);
+    fence_regs<BQ / 4>(&pa[0][0]);
+    fence_regs<BQ / 4>(&da[0][0]);
+    mbar_arrive(bar.empty + 8 * s);   // this stage is read no more
+  }
+
+  // epilogue: through this warpgroup's own K and V rows
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] *= p.scale;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  store_tile<D>(dk, base + L::K, ROWS, wg * 64, static_cast<bf16*>(p.g0), p,
+                bi, hi, kw0, wg);
+  store_tile<D>(dv, base + L::V, ROWS, wg * 64, static_cast<bf16*>(p.g1), p,
+                bi, hi, kw0, wg);
+}
+
+template <int D, int BQ>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_o,
+                          BwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const Bars bar(base + DkvSmem<D, BQ>::BARS);
+  const int k0 = (int)blockIdx.y * ROWS;   // causal: heaviest (k tile 0) first
+  const int bh = blockIdx.x;
+  const int q_start = p.causal ? k0 : 0;
+  const int n_tiles = (p.t - q_start) / BQ;
+
+  if (threadIdx.x == 0) bar.init();
+  __syncthreads();
+  if (warpgroup_index() == CONSUMERS / 128) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS)
+      dkv_produce<D, BQ>(base, bar, &tm_q, &tm_k, &tm_v, &tm_o, p, k0,
+                         q_start, n_tiles, bh, bh / p.h, bh % p.h);
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    dkv_consume<D, BQ>(base, bar, p, k0, q_start, n_tiles, bh / p.h,
+                       bh % p.h);
   }
 }
 
@@ -607,6 +1051,10 @@ flash_bwd_dkv_f32_kernel(BwdParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, int threads, int rows_per_block,
                    size_t smem, const BwdParams& prm, cudaStream_t stream) {
@@ -619,13 +1067,81 @@ cudaError_t launch(Kernel kernel, int threads, int rows_per_block,
   return cudaGetLastError();
 }
 
-constexpr size_t dq_bf16_smem(int d) {
-  return (size_t)(2 * BQ * (d + 8) + 2 * BK * (d + 8) + d * (BK + 8)) * 2;
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (libcuda), looked up through the CUDA runtime.
+EncodeTiledFn tensor_map_encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
 }
-constexpr size_t dkv_bf16_smem(int d, int bq2) {
-  return (size_t)(2 * BK * (d + 8) + 2 * bq2 * (d + 8) + 2 * d * (bq2 + 8)) * 2 +
-         2 * bq2 * sizeof(float);
+
+// A 4-D map over one strided bf16 [b, t, h, d] view (dims innermost first:
+// d, h, t, b; strides in elements), read in boxes of 64 columns x 1 head x
+// `rows` rows x 1 batch row, 128-byte swizzle. The wrapper has checked what
+// TMA needs (16-byte aligned base and strides, contiguous head dim).
+bool encode_view(CUtensorMap* map, const void* ptr, int b, int t, int h,
+                 int d, long long sb, long long st, long long sh, int rows) {
+  EncodeTiledFn encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  if (h == 1) sh = d;              // a size-1 dim's stride is arbitrary
+  if (b == 1) sb = st * t;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)t,
+                              (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
+
+// The bf16 kernels: maps for q, k, v and dO with box heights q_rows (q and
+// dO) and kv_rows (k and v), then one block per (b*h, 128-row tile).
+template <typename Kernel>
+cudaError_t launch_tma(Kernel kernel, int q_rows, int kv_rows, size_t smem,
+                       const BwdParams& p, int d, cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(p.lse) & 15) ||
+      (reinterpret_cast<uintptr_t>(p.delta) & 15))
+    return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, to;
+  if (!encode_view(&tq, p.q, p.b, p.t, p.h, d, p.q_sb, p.q_st, p.q_sh,
+                   q_rows) ||
+      !encode_view(&tk, p.k, p.b, p.t, p.h, d, p.k_sb, p.k_st, p.k_sh,
+                   kv_rows) ||
+      !encode_view(&tv, p.v, p.b, p.t, p.h, d, p.v_sb, p.v_st, p.v_sh,
+                   kv_rows) ||
+      !encode_view(&to, p.dout, p.b, p.t, p.h, d, p.o_sb, p.o_st, p.o_sh,
+                   q_rows))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(p.b * p.h, p.t / ROWS);
+  kernel<<<grid, THREADS, smem, stream>>>(tq, tk, tv, to, p);
+  return cudaGetLastError();
+}
+
 constexpr size_t dq_f32_smem(int d) {
   return (size_t)(2 * R32 * (d + 1) + 2 * C32 * d) * sizeof(float);
 }
@@ -633,7 +1149,7 @@ constexpr size_t dkv_f32_smem(int d) {
   return (size_t)(4 * R32 * (d + 1) + 2 * C32 * d + 2 * C32) * sizeof(float);
 }
 
-bool shape_ok(int t) { return t > 0 && t % BQ == 0 && t % BK == 0 && t % R32 == 0; }
+bool shape_ok(int t) { return t > 0 && t % ROWS == 0 && t % R32 == 0; }
 
 }  // namespace
 
@@ -682,11 +1198,11 @@ extern "C" int flash_bwd_dq(int dtype, int d, const void* q, const void* k,
   if (!shape_ok(t)) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
     if (d == 64)
-      return (int)launch(flash_bwd_dq_bf16_kernel<64>, 128, BQ,
-                         dq_bf16_smem(64), prm, st);
+      return (int)launch_tma(flash_bwd_dq_bf16_kernel<64>, ROWS, KT,
+                             DqSmem<64>::BYTES, prm, d, st);
     if (d == 128)
-      return (int)launch(flash_bwd_dq_bf16_kernel<128>, 128, BQ,
-                         dq_bf16_smem(128), prm, st);
+      return (int)launch_tma(flash_bwd_dq_bf16_kernel<128>, ROWS, KT,
+                             DqSmem<128>::BYTES, prm, d, st);
   } else if (dtype == 0) {
     if (d == 64)
       return (int)launch(flash_bwd_dq_f32_kernel<64>, R32, R32,
@@ -714,12 +1230,14 @@ extern "C" int flash_bwd_dkv(int dtype, int d, const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!shape_ok(t)) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
+    // BQ queries per ring stage: 64 at d = 64; 32 at d = 128, where the dk
+    // and dv accumulators (64 registers each) leave less room for S^T/dP^T
     if (d == 64)
-      return (int)launch(flash_bwd_dkv_bf16_kernel<64, 64>, 128, BK,
-                         dkv_bf16_smem(64, 64), prm, st);
+      return (int)launch_tma(flash_bwd_dkv_bf16_kernel<64, 64>, 64, ROWS,
+                             DkvSmem<64, 64>::BYTES, prm, d, st);
     if (d == 128)
-      return (int)launch(flash_bwd_dkv_bf16_kernel<128, 32>, 128, BK,
-                         dkv_bf16_smem(128, 32), prm, st);
+      return (int)launch_tma(flash_bwd_dkv_bf16_kernel<128, 32>, 32, ROWS,
+                             DkvSmem<128, 32>::BYTES, prm, d, st);
   } else if (dtype == 0) {
     if (d == 64)
       return (int)launch(flash_bwd_dkv_f32_kernel<64>, R32, R32,

@@ -24,7 +24,9 @@ give dk = dv = 0, exactly. The mask gets no gradient.
 * the CUDA kernels (``csrc/flash_fwd.cu``; ``csrc/flash_bwd.cu`` with the
   Δ preprocess, dq and fused dk/dv entries; bf16 or f32, d ∈ {64, 128},
   ``t % 128 == 0``) — launched for CUDA tensors; anything they do not take
-  raises, there is no fallback.
+  raises, there is no fallback. The bf16 dq and dk/dv kernels are wgmma
+  kernels fed by TMA; :func:`tma_layout` is the host-side layout of the
+  tensor maps they read q, k, v and dO through.
 
 :func:`flash_attention_fwd` and :func:`flash_attention_bwd` pick by the
 tensors' device.
@@ -230,6 +232,48 @@ def _check_kernel_inputs(q, named):
                              f"{name} (strides {x.stride()})")
 
 
+# TMA (the bf16 backward kernels' loads): one 4-D tensor map per operand
+TMA_BOX_COLS = 64        # head-dim columns per box: 128 bytes of bf16
+TMA_MAX_STRIDE = 1 << 40  # a map's byte strides stay below 2^40
+
+
+def tma_layout(x, name: str = "x"):
+    """The 4-D tensor map through which the bf16 backward kernels read a
+    strided ``[b, t, h, d]`` view: ``(dims, byte_strides)`` with dims
+    innermost first ``(d, h, t, b)`` and the byte strides of h, t and b.
+    A dim of size 1 gets the stride it would have if packed, as the C side
+    (``csrc/flash_bwd.cu``, ``encode_view``) gives it.
+
+    Raises ValueError for a view TMA cannot read: a head dim that is not
+    contiguous or not a multiple of 64 columns, a base address or a stride
+    that is not a multiple of 16 bytes, a stride of 0 (a broadcast dim),
+    or a stride of 2^40 bytes or more."""
+    if x.ndim != 4:
+        raise ValueError(f"tma_layout: {name} must be [b, t, h, d], got "
+                         f"{tuple(x.shape)}")
+    b, t, h, d = x.shape
+    sb, st, sh, sd = x.stride()
+    if d % TMA_BOX_COLS or sd != 1:
+        raise ValueError(f"TMA reads {name} in boxes of {TMA_BOX_COLS} "
+                         f"contiguous head-dim columns (d = {d}, "
+                         f"stride {sd})")
+    if h == 1:
+        sh = d
+    if b == 1:
+        sb = st * t
+    es = x.element_size()
+    strides = (sh * es, st * es, sb * es)
+    if x.data_ptr() % 16:
+        raise ValueError(f"TMA needs a 16-byte aligned base of {name} "
+                         f"(address % 16 = {x.data_ptr() % 16})")
+    for dim, s in zip("htb", strides):
+        if s <= 0 or s % 16 or s >= TMA_MAX_STRIDE:
+            raise ValueError(f"TMA needs the {dim} stride of {name} to be "
+                             f"a positive multiple of 16 bytes below 2^40, "
+                             f"got {s} bytes (strides {x.stride()})")
+    return (d, h, t, b), strides
+
+
 def _kernel_mask(mask, device):
     return (None if mask is None
             else mask.to(device=device, dtype=torch.float32).contiguous())
@@ -324,6 +368,11 @@ def _flash_bwd_cuda(q, k, v, mask, out, lse, dout, causal: bool,
         raise ValueError(f"flash backward takes the forward's f32 lse "
                          f"{(b, h, t)}, got {lse.dtype} {tuple(lse.shape)}")
     lse = lse.contiguous()
+    if q.dtype == torch.bfloat16:   # the wgmma kernels load through TMA
+        for name, x in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+            tma_layout(x, name)
+        if lse.data_ptr() % 16:
+            raise ValueError("flash backward needs a 16-byte aligned lse")
     delta = _flash_bwd_preprocess_cuda(out, dout)
     dq = _flash_bwd_dq_cuda(q, k, v, mask, lse, delta, dout, causal, scale)
     dk, dv = _flash_bwd_dkv_cuda(q, k, v, mask, lse, delta, dout, causal,

@@ -223,6 +223,67 @@ def test_backward_shape_checks():
         tfa.flash_attention_bwd(q, q, q, torch.ones((1, 127)), q, lse, q)
 
 
+# the tensor maps of the bf16 kernels (host-side layout, checked on the CPU)
+_MAP_B, _MAP_T, _MAP_H = 2, 256, 3
+
+
+def test_tma_layout_of_the_qkv_slices():
+    """q/k/v sliced from one [b, t, 3, h, d] projection are read in place:
+    dims (d, h, t, b) innermost first; byte strides of h, t and b."""
+    qkv = torch.zeros((_MAP_B, _MAP_T, 3, _MAP_H, 64), dtype=torch.bfloat16)
+    for i in range(3):
+        dims, strides = tfa.tma_layout(qkv[:, :, i], "q")
+        assert dims == (64, _MAP_H, _MAP_T, _MAP_B)
+        assert strides == (64 * 2, 3 * _MAP_H * 64 * 2,
+                           _MAP_T * 3 * _MAP_H * 64 * 2)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_tma_layout_of_a_contiguous_view(d):
+    x = torch.zeros((_MAP_B, _MAP_T, _MAP_H, d), dtype=torch.bfloat16)
+    dims, strides = tfa.tma_layout(x)
+    assert dims == (d, _MAP_H, _MAP_T, _MAP_B)
+    assert strides == (d * 2, _MAP_H * d * 2, _MAP_T * _MAP_H * d * 2)
+
+
+def test_tma_layout_packs_the_strides_of_size_one_dims():
+    """A dim of size 1 may carry any stride; the map gets the packed one,
+    as the C side gives it."""
+    x = torch.zeros((1, _MAP_T, 1, 64), dtype=torch.bfloat16)
+    odd = x.as_strided(x.shape, (7, 64, 3, 1))
+    assert tfa.tma_layout(odd)[1] == (128, 128, _MAP_T * 128)
+
+
+def _misaligned_views():
+    base = torch.zeros((_MAP_B, _MAP_T, _MAP_H, 136), dtype=torch.bfloat16)
+    flat = torch.zeros(_MAP_B * _MAP_T * _MAP_H * 64 + 8,
+                       dtype=torch.bfloat16)
+    shape = (_MAP_B, _MAP_T, _MAP_H, 64)
+    packed = (_MAP_T * _MAP_H * 64, _MAP_H * 64, 64, 1)
+    return {
+        # 68-column rows: a 136-byte h stride is not a multiple of 16
+        "h stride": (base[..., :68][..., :64].as_strided(
+            shape, (_MAP_T * _MAP_H * 68, _MAP_H * 68, 68, 1)), "stride"),
+        # the base 8 bytes past a 16-byte boundary
+        "base": (flat[4:].as_strided(shape, packed), "aligned base"),
+        # the head dim not contiguous
+        "head dim": (base[..., ::2], "contiguous"),
+        # a head dim TMA cannot cut into 64-column boxes
+        "d=32": (base[..., :32], "boxes of 64"),
+        # a broadcast batch dim: stride 0
+        "broadcast": (base[:1, ..., :64].expand(_MAP_B, -1, -1, -1),
+                      "stride"),
+    }
+
+
+@pytest.mark.parametrize("case", ["h stride", "base", "head dim", "d=32",
+                                  "broadcast"])
+def test_tma_layout_refuses_what_tma_cannot_read(case):
+    view, match = _misaligned_views()[case]
+    with pytest.raises(ValueError, match=match):
+        tfa.tma_layout(view, "k")
+
+
 # --------------------------------------------------------------------------
 # on the card
 # --------------------------------------------------------------------------
@@ -236,17 +297,31 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _card_inputs(t, d, dtype, device, seed):
+    """q/k/v as the strided slices of one [b, t, 3, h, d] qkv tensor (the
+    layout the attention layer hands the kernels, which TMA reads in place)
+    and a dout with a non-default stride (a slice of [b, t, 2, h, d]), with
+    the padded mask: leading padding in row 0, a fully masked row 1."""
+    q, k, v, dout, mask = _inputs(t, d, "padded", seed=seed)
+    qkv = torch.from_numpy(np.stack([q, k, v], axis=2)).to(device, dtype)
+    douts = torch.from_numpy(np.stack([dout, -dout], axis=2)).to(device, dtype)
+    return (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], douts[:, :, 0],
+            torch.from_numpy(mask).to(device))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("t", [128, 256, 2048])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-def test_cuda_backward_kernels_match_plain(cuda_device, d, dtype, causal):
+def test_cuda_backward_kernels_match_plain(cuda_device, t, d, dtype, causal):
     """f32: dq, dk, dv within 1e-4 (f32 on both sides, no TF32); bf16:
-    within ``bf16_grad_tolerance`` element by element. Masked keys and
-    rows with no key give exact zeros. Each kernel launches once."""
-    q, k, v, dout, mask = (torch.from_numpy(a).to(cuda_device) for a in
-                           _inputs(256, d, "padded", seed=14))
-    q, k, v, dout = (x.to(dtype) for x in (q, k, v, dout))
+    within ``bf16_grad_tolerance`` element by element. One tile, a few
+    tiles and the flagship length; q/k/v read in place from a qkv tensor
+    and a strided dout. Masked keys and rows with no key give exact zeros.
+    Each kernel launches once."""
+    q, k, v, dout, mask = _card_inputs(t, d, dtype, cuda_device, seed=14)
+    assert not q.is_contiguous() and not dout.is_contiguous()
     out, lse = tfa.flash_attention_fwd(q, k, v, mask, causal=causal)
     kernels = (tfa.FLASH_BWD_PREPROCESS, tfa.FLASH_BWD_DQ, tfa.FLASH_BWD_DKV)
     before = [kn.launches for kn in kernels]
@@ -269,6 +344,23 @@ def test_cuda_backward_kernels_match_plain(cuda_device, d, dtype, causal):
     assert (dk[0, :PAD] == 0).all() and (dv[0, :PAD] == 0).all()
     if causal:
         assert (dq[0, :PAD] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_backward_kernels_are_deterministic(cuda_device, d):
+    """Each block owns its output tile (two passes, no atomics), so two
+    launches on the same inputs give bitwise equal dq, dk and dv."""
+    q, k, v, dout, mask = _card_inputs(2048, d, torch.bfloat16, cuda_device,
+                                       seed=16)
+    for m in (None, mask):
+        out, lse = tfa.flash_attention_fwd(q, k, v, m, causal=True)
+        first = tfa.flash_attention_bwd(q, k, v, m, out, lse, dout,
+                                        causal=True)
+        second = tfa.flash_attention_bwd(q, k, v, m, out, lse, dout,
+                                         causal=True)
+        for name, a, b in zip(("dq", "dk", "dv"), first, second):
+            assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
