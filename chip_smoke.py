@@ -7,15 +7,19 @@ Phases, in order; any failure propagates and the script exits non-zero:
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: both kernel sources from deeplearning4j_tpu_torch/ops/csrc, one
    nvcc each, all at once (a second run reuses the builds); each one's
-   build seconds, registers and spills (``-Xptxas -v``); the SASS of the
-   backward library (``cuobjdump -sass``): per kernel the counts of HGMMA
+   build seconds, registers and spills (``-Xptxas -v``); the SASS of both
+   libraries (``cuobjdump -sass``): per kernel the counts of HGMMA
    (wgmma), UTMALDG (TMA tile loads), UBLKCP (bulk copies) and LDGSTS
-   (cp.async) — a bf16 dq or dk/dv instance without HGMMA fails the run;
+   (cp.async) — a bf16 forward, dq or dk/dv instance without HGMMA or
+   UTMALDG fails the run;
 3. forward kernel vs plain: the flash-attention forward kernel against its
    plain PyTorch version on the same inputs on the card, over head dims,
    dtypes, causal or not, masks (including fully masked rows) and lengths;
-   then timed at the flagship shape beside the plain version, the bound,
-   and torch's scaled_dot_product_attention (timed only as a yardstick);
+   then, at the flagship shape, two launches must give bitwise equal out
+   and lse, and the kernel is timed beside the plain version, the bound
+   (and its share of it) and torch's scaled_dot_product_attention (timed
+   only as a yardstick; the kernel is reported as a ratio of it); the same
+   at d = 128 ([8, 2048, 6, 128], the same d_model);
 4. backward kernels vs plain: the Δ preprocess, dq and fused dk/dv kernels
    against the plain backward over the same 48 cases (dq, dk, dv and Δ;
    exact zeros for masked keys and rows with no key); then, at the flagship
@@ -146,8 +150,9 @@ FLAGSHIP = {"V": 32768, "L": 12, "D": 768, "H": 12, "F": 3072, "T": 2048,
 # SASS opcodes counted per kernel: wgmma, TMA tile loads, bulk copies and
 # cp.async
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS")
-# the bf16 instances of the backward kernels, which must run on wgmma
-WGMMA_KERNELS = {"flash_bwd_dq": ("flash_bwd_dq_bf16<64>",
+# the bf16 instances of the kernels, which must run on wgmma fed by TMA
+WGMMA_KERNELS = {"flash_fwd": ("flash_fwd_bf16<64>", "flash_fwd_bf16<128>"),
+                 "flash_bwd_dq": ("flash_bwd_dq_bf16<64>",
                                   "flash_bwd_dq_bf16<128>"),
                  "flash_bwd_dkv": ("flash_bwd_dkv_bf16<64,64>",
                                    "flash_bwd_dkv_bf16<128,32>")}
@@ -208,8 +213,8 @@ def sass_counts(library: Path):
 def phase_build():
     """Build every kernel source; print build seconds, each kernel's
     registers and spills and the compiler's performance warnings, and the
-    SASS opcode counts of the backward library. Returns the backward
-    library's {label: {registers, spill bytes, opcode counts}}."""
+    SASS opcode counts of every library. Returns {label: {registers, spill
+    bytes, opcode counts}} over all kernels."""
     _nvcc.build_all()       # one nvcc per source, all at once
     for lib in _nvcc.LIBRARIES.values():
         print(f"build {lib.name}: {lib.build_seconds:.3f} s -> "
@@ -220,20 +225,23 @@ def phase_build():
         for ln in lib.build_log.splitlines():
             if "Performance" in ln or "setmaxnreg" in ln:
                 print(f"  {ln.strip()}")
-    lib = _nvcc.LIBRARIES["flash_bwd"]
-    report = ptxas_report(lib.build_log)
-    counts = sass_counts(lib.library_path())
-    if counts is None:
-        print("sass: cuobjdump not found; the opcode check is skipped")
-        return report
+    report, counts = {}, {}
+    for lib in _nvcc.LIBRARIES.values():
+        report.update(ptxas_report(lib.build_log))
+        lib_counts = sass_counts(lib.library_path())
+        if lib_counts is None:
+            print("sass: cuobjdump not found; the opcode check is skipped")
+            return report
+        counts.update(lib_counts)
     for label, c in counts.items():
         report.setdefault(label, {}).update(c)
         print(f"sass {label}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
     for labels in WGMMA_KERNELS.values():
         for label in labels:
-            if counts.get(label, {}).get("HGMMA", 0) == 0:
-                raise AssertionError(f"{label} has no HGMMA (wgmma) in its "
-                                     "SASS")
+            for op, what in (("HGMMA", "wgmma"), ("UTMALDG", "TMA loads")):
+                if counts.get(label, {}).get(op, 0) == 0:
+                    raise AssertionError(f"{label} has no {op} ({what}) in "
+                                         "its SASS")
     return report
 
 
@@ -364,32 +372,54 @@ def phase_kernel_vs_plain():
     print(f"kernel vs plain: {n_cases} cases passed")
 
 
-def phase_flagship_kernel_timing():
-    b, t, h, d = 8, 2048, 12, 64
+def fwd_timing(b, t, h, d):
+    """The bf16 forward kernel at [b, t, h, d] causal on strided qkv
+    slices: checked against the plain version, then timed beside it, the
+    bound and scaled_dot_product_attention on the same views."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
     q, k, v = make_qkv(gen, b, t, h, d, torch.bfloat16)
-    out, _ = fa.flash_attention_fwd(q, k, v, None, causal=True)
+    out, lse = fa.flash_attention_fwd(q, k, v, None, causal=True)
     ref, _ = fa.flash_attention_fwd_plain(q, k, v, None, causal=True)
     err, ratio = out_error(q, k, v, None, True, out, ref)
     if not ratio <= 1.0:
-        raise AssertionError(f"flagship-shape kernel error {err} is "
+        raise AssertionError(f"[{b}, {t}, {h}, {d}] kernel error {err} is "
                              f"{ratio:.3g} of its bound")
-    launches_before = fa.FLASH_FWD.launches
+    # each block owns its output tile: a second launch gives the same bits
+    out2, lse2 = fa.flash_attention_fwd(q, k, v, None, causal=True)
+    same = torch.equal(out, out2) and torch.equal(lse, lse2)
+    del ref, out2, lse2
     ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, None, causal=True), 20)
     plain_ms = cuda_ms(lambda: fa.flash_attention_fwd_plain(
         q, k, v, None, causal=True), 3, warmup=1)
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=True), 20)
-    fa.FLASH_FWD.launches = launches_before   # timing launches do not count
     bound_ms, bound_by = flash_bound(b, t, h, d, True, None, 2)
     print(f"flash_fwd at [b={b}, t={t}, h={h}, d={d}] causal bf16: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-          f"max|dout| vs plain {err:.6g} ({ratio:.4g} of its bound)")
+          f"kernel {ms:.4f} ms = {ms / library_ms:.3f}x sdpa "
+          f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}; "
+          f"{100 * bound_ms / ms:.1f}% of it); plain {plain_ms:.4f} ms; "
+          f"max|dout| vs plain {err:.6g} ({ratio:.4g} of its bound); out and "
+          f"lse bitwise equal over two launches: {same}")
+    if not same:
+        raise AssertionError("the forward kernel is not deterministic")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "bound_share": bound_ms / ms, "library_ms": library_ms,
+            "library_call": "scaled_dot_product_attention",
+            "over_sdpa": ms / library_ms}
+
+
+def phase_flagship_kernel_timing(build):
+    b, t, h = (FLAGSHIP[k] for k in "BTH")
+    launches_before = fa.FLASH_FWD.launches
+    res = fwd_timing(b, t, h, FLAGSHIP["D"] // h)
+    res["d128"] = {"shape": [b, t, FLAGSHIP["D"] // 128, 128],
+                   **fwd_timing(b, t, FLAGSHIP["D"] // 128, 128)}
+    fa.FLASH_FWD.launches = launches_before   # timing launches do not count
+    res["instances"] = {label: build.get(label, {})
+                        for label in WGMMA_KERNELS["flash_fwd"]}
+    return res
 
 
 def phase_main_path():
@@ -567,8 +597,9 @@ def forward_seconds(net, ids, reps=5):
 
 def profile(fn, what, top=10):
     """Device time of one call of ``fn`` by kernel (torch.profiler),
-    largest first. Returns the device milliseconds (None if the profiler
-    recorded no device kernels)."""
+    largest first: the top ``top`` and every flash kernel. Returns the
+    device milliseconds (None if the profiler recorded no device
+    kernels)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
@@ -583,7 +614,8 @@ def profile(fn, what, top=10):
     total = sum(e.self_device_time_total for e in events)
     print(f"profile: {what}, {total / 1e3:.3f} ms of device time in "
           f"{sum(e.count for e in events)} kernel launches")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    for e in ranked[:top] + [e for e in ranked[top:] if "flash_" in e.key]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
               f"{100.0 * e.self_device_time_total / total:5.1f}% "
               f"x{e.count:<4d} {e.key[:90]}")
@@ -752,6 +784,25 @@ def bwd_bounds(b, t, h, d, itemsize):
     return res
 
 
+def preprocess_entry(out, dout):
+    """A launch of the preprocess kernel through its C entry into a fixed
+    Δ buffer. The kernel takes about 20 us, less than the wrapper's host
+    work per call (two allocations, checks), so a run of wrapper calls
+    would time the host; a run of these times the kernel."""
+    b, t, h, d = out.shape
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=out.device)
+    fn = fa.FLASH_BWD_PREPROCESS.fn(fa._PRE_ARGS)
+    args = (1 if out.dtype == torch.bfloat16 else 0, d, out.data_ptr(),
+            *out.stride()[:3], dout.data_ptr(), *dout.stride()[:3],
+            delta.data_ptr(), b, t, h)
+
+    def launch():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"flash_bwd_preprocess launch failed: {err}")
+    return launch
+
+
 def phase_bwd_timing(build):
     b, t, h = (FLAGSHIP[k] for k in "BTH")
     d = FLAGSHIP["D"] // h
@@ -779,8 +830,7 @@ def phase_bwd_timing(build):
         raise AssertionError("the backward kernels are not deterministic")
     del again
     scale = 1.0 / d ** 0.5
-    ms = {"flash_bwd_preprocess": cuda_ms(
-              lambda: fa._flash_bwd_preprocess_cuda(out, dout), 20),
+    ms = {"flash_bwd_preprocess": cuda_ms(preprocess_entry(out, dout), 100),
           "flash_bwd_dq": cuda_ms(lambda: fa._flash_bwd_dq_cuda(
               q, k, v, None, lse, delta, dout, True, scale), 20),
           "flash_bwd_dkv": cuda_ms(lambda: fa._flash_bwd_dkv_cuda(
@@ -810,7 +860,8 @@ def phase_bwd_timing(build):
                      "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                      "bound_share": bounds[name][0] / ms[name],
                      "library_ms": lib}
-    for name, labels in WGMMA_KERNELS.items():
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        labels = WGMMA_KERNELS[name]
         res[name]["plain_computes"] = "dq, dk and dv"
         res[name]["sdpa_backward_ms"] = sdpa_bwd_ms
         res[name]["dq_plus_dkv_over_sdpa_backward"] = ratio
@@ -1018,7 +1069,7 @@ def main():
     build = phase_build()
 
     phase_kernel_vs_plain()
-    timing = phase_flagship_kernel_timing()
+    timing = phase_flagship_kernel_timing(build)
     phase_bwd_kernel_vs_plain()
     bwd_timing = phase_bwd_timing(build)
     net, fwd_launches = phase_main_path()

@@ -3,10 +3,11 @@
 Each source under ``ops/csrc/`` becomes one shared library with a plain C
 interface, compiled for Hopper (``sm_90a``) at first use. Libraries land
 in ``build/kernels/<name>-<hash>/`` at the repository root, keyed by a
-hash of the source and the flags, so a second run reuses the build and an
-edited source rebuilds. The first kernel call (or :func:`build_all`)
-compiles every missing library at once, one ``nvcc`` process per source,
-and records each one's build seconds.
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+a second run reuses the build and an edited source or header rebuilds.
+The first kernel call (or :func:`build_all`) compiles every missing
+library at once, one ``nvcc`` process per source, and records each one's
+build seconds.
 
 Nothing here runs on import: the CPU-only test environment has no
 ``nvcc``, and no CUDA tensor ever reaches a kernel there.
@@ -60,7 +61,12 @@ class Library:
         self._lib: Optional[ctypes.CDLL] = None
 
     def _digest(self) -> str:
+        """The source, every header under ``csrc/`` (a source may include
+        any of them) and the flags."""
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.name.encode())
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return h.hexdigest()[:16]
 

@@ -1,10 +1,10 @@
 // Flash-attention backward for Hopper (sm_90a), bound through a plain C
 // interface (ctypes). Three entry points:
 //
-//   flash_bwd_preprocess  Delta [b, h, t] f32 = rowsum(dO * O) over d.
-//                         Replaces the XLA pass of the JAX package's
-//                         _flash_bwd_btd_pallas (deeplearning4j_tpu/ops/
-//                         flash_attention.py:442; not a Pallas kernel there).
+//   flash_bwd_preprocess  Delta [b, h, t] f32 = rowsum(dO * O) over d
+//                         (d = 64 or 128). Replaces the XLA pass of the JAX
+//                         package's _flash_bwd_btd_pallas (deeplearning4j_tpu/
+//                         ops/flash_attention.py:442; not a Pallas kernel).
 //   flash_bwd_dq          dq = sum_k dS K. Replaces the Pallas kernel
 //                         _bwd_dq_kernel (flash_attention.py:359, tile math
 //                         _bwd_p_ds :336, driver _flash_bwd_btd_pallas :430).
@@ -34,6 +34,16 @@
 // tensor cores fed. The preprocess reads O and dO (50 MB) and writes Delta
 // (0.8 MB): memory-bound, about 15 us. One main-path training step of the
 // flagship launches each entry 12 times, once per layer.
+//
+// The preprocess is a separate kernel built for bandwidth: 16-byte loads
+// (8 bf16 or 4 f32 values a thread, so a 128-byte d = 64 bf16 row is 8
+// threads), two rows a thread in flight, the row sum reduced by shuffles
+// among the row's threads, and rows numbered t fastest within one (b, h),
+// so Delta [b, h, t] is written coalesced. Strided O and dO views are read
+// in place.
+//
+// The Hopper primitives (mbarriers, TMA, wgmma and its descriptors,
+// setmaxnreg, the tensor maps) are in hopper.cuh, shared with flash_fwd.cu.
 //
 // Design of the bf16 kernels (d = 64 or 128). On the TPU the two Pallas
 // kernels carry their accumulator across a sequential grid dimension. Here
@@ -76,17 +86,13 @@
 //     f32 gradients keep full f32 precision. They serve the card tests, not
 //     the main path.
 
-#include <cuda.h>          // CUtensorMap and its enums; the encoder is looked
-#include <cuda_runtime.h>  // up at run time, so the library needs no -lcuda
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr float HALF_NEG = -5e29f;   // NEG_INF / 2, NEG_INF = -1e30
-constexpr float LOG2E = 1.4426950408889634f;
+using namespace hopper;
 
-typedef __nv_bfloat16 bf16;
+constexpr float HALF_NEG = -5e29f;   // NEG_INF / 2, NEG_INF = -1e30
 
 struct BwdParams {
   const void* q;
@@ -107,304 +113,111 @@ struct BwdParams {
   int causal;
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
 // ---------------------------------------------------------------------------
-// Hopper primitives: shared-memory access, mbarriers, TMA, wgmma
+// Delta = rowsum(dO * O), at memory bandwidth
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+constexpr int PRE_THREADS = 256;
+constexpr int PRE_ROWS = 2;   // rows per thread, their loads all in flight
 
-__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
-  uint4 v;
-  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(addr)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ float2 ld_shared_f2(uint32_t addr) {
-  float2 v;
-  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
-               : "=f"(v.x), "=f"(v.y)
-               : "r"(addr)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// One arrival that also announces `bytes` of TMA traffic to wait for.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed. A wait that never
-// ends (a broken pipeline) traps after about 2^28 polls, seconds at least,
-// so it surfaces as a launch error instead of a hung card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    if (polls == (1u << 28)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// One box of a 4-D tensor map (coordinates innermost first: d, h, t, b) into
-// shared memory; completion is counted on `bar` in bytes.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            int c0, int c1, int c2, int c3,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(bar)
-      : "memory");
-}
-
-// A contiguous run of `bytes` (a multiple of 16, 16-byte aligned) into
-// shared memory, counted on `bar`.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// Named barrier over the 128 threads of one consumer warpgroup (ids 1, 2).
-__device__ __forceinline__ void warpgroup_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// 2^x with one MUFU.EX2; results below 2^-126 flush to 0 (P that small
-// adds nothing a bf16 gradient can hold).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Pin registers that an asynchronous wgmma reads or writes, so the compiler
-// moves no access to them across the wgmma fence, commit and wait.
-template <int R>
-__device__ __forceinline__ void fence_regs(float* r) {
+// The sum of the products of two 16-byte vectors of 8 bf16 or 4 f32 values.
+__device__ __forceinline__ float dot16(uint4 a, uint4 b, bf16) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float acc = 0.f;
 #pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int R>
-__device__ __forceinline__ void fence_regs(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// wgmma shared-memory descriptor of a tile written by TMA with 128-byte
-// swizzle (rows of 128 bytes, 8-row atoms of 1024 bytes, 1024-byte aligned).
-// K-major: `addr` steps 32 bytes per 16-element k step; `lbo` is unused.
-// MN-major: `addr` steps 8 rows (1024 bytes, the SBO) per 8 k rows and `lbo`
-// is the distance between 64-element chunks of the MN dimension.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// The k-th 16-column step of a K-major tile of `rows` rows stored as D/64
-// column halves of rows x 128 bytes each.
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows,
-                                                int kk) {
-  return sw128_desc(tile + (kk >> 2) * rows * 128 + (kk & 3) * 32, 16);
-}
-
-// The k-th 16-row step of a tile read MN-major (its D columns are N).
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int rows,
-                                                 int kk) {
-  return sw128_desc(tile + kk * 16 * 128, rows * 128);
-}
-
-// d (64 x 32, f32) (+)= A B, A and B from shared memory, both K-major.
-__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a, uint64_t b,
-                                             int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// d (64 x 64, f32) (+)= A B, A and B from shared memory, both K-major.
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b,
-                                             int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// d (64 x 64, f32) += A B, A (64 x 16 bf16) from registers in the
-// accumulator layout, B from shared memory, MN-major (the transpose bit).
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (64 x 128, f32) += A B, A (64 x 16 bf16) from registers in the
-// accumulator layout, B from shared memory, MN-major (the transpose bit).
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <int N> struct Wgmma;
-template <> struct Wgmma<32> {
-  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
-                                            int scale_d) {
-    wgmma_ss_n32(d, a, b, scale_d);
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), v = __bfloat1622float2(y[i]);
+    acc = fmaf(u.x, v.x, acc);
+    acc = fmaf(u.y, v.y, acc);
   }
-};
-template <> struct Wgmma<64> {
-  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
-                                            int scale_d) {
-    wgmma_ss_n64(d, a, b, scale_d);
-  }
-  static __device__ __forceinline__ void rs(float* d, const uint32_t* a,
-                                            uint64_t b) {
-    wgmma_rs_n64(d, a, b);
-  }
-};
-template <> struct Wgmma<128> {
-  static __device__ __forceinline__ void rs(float* d, const uint32_t* a,
-                                            uint64_t b) {
-    wgmma_rs_n128(d, a, b);
-  }
+  return acc;
+}
+__device__ __forceinline__ float dot16(uint4 a, uint4 b, float) {
+  return fmaf(__uint_as_float(a.x), __uint_as_float(b.x),
+              fmaf(__uint_as_float(a.y), __uint_as_float(b.y),
+                   fmaf(__uint_as_float(a.z), __uint_as_float(b.z),
+                        __uint_as_float(a.w) * __uint_as_float(b.w))));
+}
+
+// How a block of the preprocess splits its rows: a row of D values is read
+// by TPR neighbouring threads with 16-byte loads (VEC values each), a warp
+// covers RPW rows per load step, and a block RPB consecutive rows.
+template <typename T, int D>
+struct PreSplit {
+  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int TPR = D / VEC;
+  static constexpr int RPW = 32 / TPR;
+  static constexpr int RPB = PRE_THREADS / 32 * RPW * PRE_ROWS;
+  static_assert(D % VEC == 0 && 32 % TPR == 0, "row split");
 };
 
-// ---------------------------------------------------------------------------
-// Delta = rowsum(dO * O): one warp per (b, t, h) row
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(256)
+// One block per (b*h, run of RPB consecutive t): each thread holds PRE_ROWS
+// rows of O and dO in flight, the row sum is reduced by shuffles within the
+// row's threads, and consecutive rows (consecutive t of one head) write
+// consecutive values of Delta [b, h, t]. No division per row: the block's
+// (b, h) is found once.
+template <typename T, int D>
+__global__ void __launch_bounds__(PRE_THREADS)
 flash_bwd_preprocess_kernel(const T* out, long long o_sb, long long o_st,
                             long long o_sh, const T* dout, long long d_sb,
                             long long d_st, long long d_sh, float* delta,
-                            int b, int t, int h, int d) {
-  const long long row =
-      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row >= (long long)b * t * h) return;   // whole warps leave together
-  const int lane = threadIdx.x & 31;
-  const int hi = (int)(row % h);
-  const long long bt = row / h;
-  const int ti = (int)(bt % t);
-  const int bi = (int)(bt / t);
-  const T* orow = out + bi * o_sb + ti * o_st + hi * o_sh;
-  const T* drow = dout + bi * d_sb + ti * d_st + hi * d_sh;
-  float acc = 0.f;
-  for (int i = lane; i < d; i += 32)
-    acc = fmaf(to_f32(drow[i]), to_f32(orow[i]), acc);
+                            int t, int h) {
+  using S = PreSplit<T, D>;
+  const int bh = blockIdx.x;
+  const int bi = bh / h, hi = bh % h;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = lane % S::TPR;
+  const int t0 = (int)blockIdx.y * S::RPB + warp * S::RPW * PRE_ROWS +
+                 lane / S::TPR;
+  const T* ob = out + bi * o_sb + hi * o_sh + c * S::VEC;
+  const T* db = dout + bi * d_sb + hi * d_sh + c * S::VEC;
+  uint4 ov[PRE_ROWS], dv[PRE_ROWS];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[((long long)bi * h + hi) * t + ti] = acc;
+  for (int i = 0; i < PRE_ROWS; ++i) {
+    const int ti = t0 + i * S::RPW;
+    ov[i] = dv[i] = make_uint4(0u, 0u, 0u, 0u);
+    if (ti < t) {
+      ov[i] = __ldg(reinterpret_cast<const uint4*>(ob + ti * o_st));
+      dv[i] = __ldg(reinterpret_cast<const uint4*>(db + ti * d_st));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < PRE_ROWS; ++i) {
+    float acc = dot16(ov[i], dv[i], T());
+#pragma unroll
+    for (int off = S::TPR / 2; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    const int ti = t0 + i * S::RPW;
+    if (c == 0 && ti < t) delta[(long long)bh * t + ti] = acc;
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_preprocess(const void* out, long long o_sb, long long o_st,
+                              long long o_sh, const void* dout,
+                              long long d_sb, long long d_st, long long d_sh,
+                              float* delta, int b, int t, int h,
+                              cudaStream_t stream) {
+  constexpr int RPB = PreSplit<T, D>::RPB;
+  // b*h on x (up to 2^31 - 1 blocks), runs of t on y (at most 65535)
+  const long long bhs = (long long)b * h;
+  if (bhs > 0x7fffffffLL || (t + RPB - 1) / RPB > 65535)
+    return cudaErrorInvalidValue;
+  dim3 grid((unsigned)bhs, (t + RPB - 1) / RPB);
+  flash_bwd_preprocess_kernel<T, D><<<grid, PRE_THREADS, 0, stream>>>(
+      static_cast<const T*>(out), o_sb, o_st, o_sh,
+      static_cast<const T*>(dout), d_sb, d_st, d_sh, delta, t, h);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
 // bf16: warp-specialised wgmma kernels fed by TMA
 // ---------------------------------------------------------------------------
 
-constexpr int CONSUMERS = 256;             // two warpgroups of 64 rows each
-constexpr int THREADS = CONSUMERS + 128;   // and a producer warpgroup
 constexpr int STAGES = 3;                  // depth of the TMA ring
-constexpr int ROWS = 128;                  // output rows per block
 constexpr int KT = 64;                     // keys per streamed dq tile
-
-constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+using Bars = RingBars<STAGES>;
 
 // Shared memory of the dq kernel (byte offsets from a 1024-aligned base).
 // A tile of r rows is D/64 column halves of r x 128 bytes.
@@ -434,97 +247,7 @@ struct DkvSmem {
   static constexpr int BYTES = BARS + (2 * STAGES + 1) * 8 + 1024;
 };
 
-// The rows [r0, r0 + n) of one head of a strided view into a tile of n rows,
-// one TMA box per 64-column half.
-template <int D>
-__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map,
-                                          int n, int hi, int r0, int bi,
-                                          uint32_t bar) {
-#pragma unroll
-  for (int c = 0; c < D / 64; ++c)
-    tma_load_4d(dst + c * n * 128, map, c * 64, hi, r0, bi, bar);
-}
 
-// The 16-byte chunk j (columns 8j..8j+7) of row r of a tile of n rows, with
-// the 128-byte swizzle (chunk index XOR row mod 8).
-__device__ __forceinline__ uint32_t chunk_addr(uint32_t tile, int n, int r,
-                                               int j) {
-  return tile + (j >> 3) * n * 128 + r * 128 + (((j & 7) ^ (r & 7)) << 4);
-}
-
-// A warpgroup's 64 x D f32 accumulator (wgmma layout) as bf16 into the
-// 64 rows of `tile` (a tile of n rows) at row r0, then out to the contiguous
-// [b, t, h, d] gradient, rows g0.. of head (bi, hi): 16-byte stores.
-template <int D>
-__device__ __forceinline__ void store_tile(const float* acc, uint32_t tile,
-                                           int n, int r0, bf16* out,
-                                           const BwdParams& p, int bi, int hi,
-                                           int g0, int wg) {
-  const int tw = threadIdx.x & 127;
-  const int warp = tw >> 5, g = (tw & 31) >> 2, t4 = tw & 3;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int r = r0 + warp * 16 + g + 8 * hr;
-      st_shared_u32(chunk_addr(tile, n, r, j) + t4 * 4,
-                    pack_bf16(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]));
-    }
-  warpgroup_sync(wg);
-  for (int i = tw; i < 64 * D / 8; i += 128) {
-    const int r = i / (D / 8), j = i % (D / 8);
-    const uint4 v = ld_shared_v4(chunk_addr(tile, n, r0 + r, j));
-    *reinterpret_cast<uint4*>(
-        out + (((long long)bi * p.t + g0 + r) * p.h + hi) * D + j * 8) = v;
-  }
-}
-
-// Rounds the accumulator columns 16kc..16kc+15 to bf16: exactly the A
-// fragment of the k step kc of the next product.
-template <int N>
-__device__ __forceinline__ void acc_to_frags(uint32_t (*a)[4],
-                                             const float* acc) {
-#pragma unroll
-  for (int kc = 0; kc < N / 16; ++kc)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[kc][i] = pack_bf16(acc[8 * kc + 2 * i], acc[8 * kc + 2 * i + 1]);
-}
-
-// Register budgets of the two roles (setmaxnreg): the producer warpgroup
-// gives back what the consumers take, 128 x (40 + 2 x 232) = 64,512 of the
-// SM's 65,536 registers.
-template <int R>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-template <int R>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-// The warpgroup of this thread, broadcast from lane 0 so that the compiler
-// sees a warp-uniform value (setmaxnreg is applied only on such a branch).
-__device__ __forceinline__ int warpgroup_index() {
-  return __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
-}
-constexpr int PRODUCER_REGS = 40;
-constexpr int CONSUMER_REGS = 232;
-
-// The mbarriers of one block: a full and an empty barrier per ring stage,
-// and one for the operands loaded once.
-struct Bars {
-  uint32_t full, empty, once;
-  __device__ __forceinline__ explicit Bars(uint32_t at)
-      : full(at), empty(at + 8 * STAGES), once(at + 16 * STAGES) {}
-  __device__ __forceinline__ void init() const {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, CONSUMERS);
-    }
-    mbar_init(once, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-};
 
 // ---- dq --------------------------------------------------------------------
 
@@ -1067,55 +790,6 @@ cudaError_t launch(Kernel kernel, int threads, int rows_per_block,
   return cudaGetLastError();
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled (libcuda), looked up through the CUDA runtime.
-EncodeTiledFn tensor_map_encoder() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
-// A 4-D map over one strided bf16 [b, t, h, d] view (dims innermost first:
-// d, h, t, b; strides in elements), read in boxes of 64 columns x 1 head x
-// `rows` rows x 1 batch row, 128-byte swizzle. The wrapper has checked what
-// TMA needs (16-byte aligned base and strides, contiguous head dim).
-bool encode_view(CUtensorMap* map, const void* ptr, int b, int t, int h,
-                 int d, long long sb, long long st, long long sh, int rows) {
-  EncodeTiledFn encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  if (h == 1) sh = d;              // a size-1 dim's stride is arbitrary
-  if (b == 1) sb = st * t;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)t,
-                              (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // The bf16 kernels: maps for q, k, v and dO with box heights q_rows (q and
 // dO) and kv_rows (k and v), then one block per (b*h, 128-row tile).
 template <typename Kernel>
@@ -1163,23 +837,21 @@ extern "C" int flash_bwd_preprocess(int dtype, int d, const void* out,
                                     long long d_sh, float* delta, int b,
                                     int t, int h, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long rows = (long long)b * t * h;
-  if (rows <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  const long long blocks = (rows + threads / 32 - 1) / (threads / 32);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if (dtype == 1) {
-    flash_bwd_preprocess_kernel<bf16><<<(unsigned)blocks, threads, 0, st>>>(
-        static_cast<const bf16*>(out), o_sb, o_st, o_sh,
-        static_cast<const bf16*>(dout), d_sb, d_st, d_sh, delta, b, t, h, d);
-  } else if (dtype == 0) {
-    flash_bwd_preprocess_kernel<float><<<(unsigned)blocks, threads, 0, st>>>(
-        static_cast<const float*>(out), o_sb, o_st, o_sh,
-        static_cast<const float*>(dout), d_sb, d_st, d_sh, delta, b, t, h, d);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (b <= 0 || t <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 1 && d == 64)
+    err = launch_preprocess<bf16, 64>(out, o_sb, o_st, o_sh, dout, d_sb, d_st,
+                                      d_sh, delta, b, t, h, st);
+  else if (dtype == 1 && d == 128)
+    err = launch_preprocess<bf16, 128>(out, o_sb, o_st, o_sh, dout, d_sb,
+                                       d_st, d_sh, delta, b, t, h, st);
+  else if (dtype == 0 && d == 64)
+    err = launch_preprocess<float, 64>(out, o_sb, o_st, o_sh, dout, d_sb,
+                                       d_st, d_sh, delta, b, t, h, st);
+  else if (dtype == 0 && d == 128)
+    err = launch_preprocess<float, 128>(out, o_sb, o_st, o_sh, dout, d_sb,
+                                        d_st, d_sh, delta, b, t, h, st);
+  return (int)err;
 }
 
 extern "C" int flash_bwd_dq(int dtype, int d, const void* q, const void* k,

@@ -24,9 +24,9 @@ give dk = dv = 0, exactly. The mask gets no gradient.
 * the CUDA kernels (``csrc/flash_fwd.cu``; ``csrc/flash_bwd.cu`` with the
   Δ preprocess, dq and fused dk/dv entries; bf16 or f32, d ∈ {64, 128},
   ``t % 128 == 0``) — launched for CUDA tensors; anything they do not take
-  raises, there is no fallback. The bf16 dq and dk/dv kernels are wgmma
-  kernels fed by TMA; :func:`tma_layout` is the host-side layout of the
-  tensor maps they read q, k, v and dO through.
+  raises, there is no fallback. The bf16 forward, dq and dk/dv kernels are
+  wgmma kernels fed by TMA; :func:`tma_layout` is the host-side layout of
+  the tensor maps they read q, k, v (and dO) through.
 
 :func:`flash_attention_fwd` and :func:`flash_attention_bwd` pick by the
 tensors' device.
@@ -232,17 +232,19 @@ def _check_kernel_inputs(q, named):
                              f"{name} (strides {x.stride()})")
 
 
-# TMA (the bf16 backward kernels' loads): one 4-D tensor map per operand
+# TMA (the bf16 forward and backward kernels' loads): one 4-D tensor map
+# per operand
 TMA_BOX_COLS = 64        # head-dim columns per box: 128 bytes of bf16
 TMA_MAX_STRIDE = 1 << 40  # a map's byte strides stay below 2^40
 
 
 def tma_layout(x, name: str = "x"):
-    """The 4-D tensor map through which the bf16 backward kernels read a
-    strided ``[b, t, h, d]`` view: ``(dims, byte_strides)`` with dims
-    innermost first ``(d, h, t, b)`` and the byte strides of h, t and b.
-    A dim of size 1 gets the stride it would have if packed, as the C side
-    (``csrc/flash_bwd.cu``, ``encode_view``) gives it.
+    """The 4-D tensor map through which the bf16 forward, dq and dk/dv
+    kernels read a strided ``[b, t, h, d]`` view (q, k, v and dO):
+    ``(dims, byte_strides)`` with dims innermost first ``(d, h, t, b)`` and
+    the byte strides of h, t and b. A dim of size 1 gets the stride it
+    would have if packed, as the C side (``csrc/hopper.cuh``,
+    ``encode_view``) gives it.
 
     Raises ValueError for a view TMA cannot read: a head dim that is not
     contiguous or not a multiple of 64 columns, a base address or a stride
@@ -275,8 +277,12 @@ def tma_layout(x, name: str = "x"):
 
 
 def _kernel_mask(mask, device):
-    return (None if mask is None
-            else mask.to(device=device, dtype=torch.float32).contiguous())
+    """The [b, t] key mask as the kernels read it: f32, contiguous, 16-byte
+    aligned (the bf16 forward bulk-copies it tile by tile)."""
+    if mask is None:
+        return None
+    mask = mask.to(device=device, dtype=torch.float32).contiguous()
+    return mask.clone() if mask.data_ptr() % 16 else mask
 
 
 def _ptr(x):
@@ -293,9 +299,17 @@ def _launched(kernel: _nvcc.CudaKernel, err: int) -> None:
 def _flash_fwd_cuda(q, k, v, mask, causal: bool, scale: float):
     b, t, h, d = q.shape
     _check_kernel_inputs(q, (("q", q), ("k", k), ("v", v)))
+    if q.dtype == torch.bfloat16:   # the wgmma kernel loads through TMA
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            tma_layout(x, name)
+        if not scale > 0:
+            raise ValueError(f"the bf16 flash forward takes a positive "
+                             f"scale, got {scale}")
     mask = _kernel_mask(mask, q.device)
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    if lse.data_ptr() % 16:
+        raise ValueError("flash forward needs a 16-byte aligned lse")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = FLASH_FWD.fn(_FWD_ARGS)(
         1 if q.dtype == torch.bfloat16 else 0, d,

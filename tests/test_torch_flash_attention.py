@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from deeplearning4j_tpu_torch.ops import _nvcc
 from deeplearning4j_tpu_torch.ops import attention as tattn
 from deeplearning4j_tpu_torch.ops import flash_attention as tfa
 
@@ -208,6 +209,81 @@ def test_shape_mismatch_raises():
         tfa.flash_attention_fwd(q, q, q, torch.ones((1, 127)))
 
 
+def _views_tma_cannot_read():
+    """bf16 [2, 256, 3, 64] views the bf16 forward's tensor maps cannot
+    read (CPU tensors: the wrapper checks them before any CUDA call)."""
+    shape = (2, 256, 3, 64)
+    wide = torch.zeros((2, 256, 3, 136), dtype=torch.bfloat16)
+    flat = torch.zeros(2 * 256 * 3 * 64 + 8, dtype=torch.bfloat16)
+    return {
+        # 68-column rows: a 136-byte h stride is not a multiple of 16
+        "h stride": wide[..., :68][..., :64].as_strided(
+            shape, (256 * 3 * 68, 3 * 68, 68, 1)),
+        # the base 2 bytes past a 16-byte boundary
+        "base": flat[1:].as_strided(shape, (256 * 3 * 64, 3 * 64, 64, 1)),
+        # the head dim not contiguous
+        "head dim": wide[..., :128:2],
+        # a broadcast batch dim: a stride of 0, which only TMA refuses
+        "broadcast": wide[:1, ..., :64].expand(2, -1, -1, -1),
+    }
+
+
+@pytest.mark.parametrize("case", ["h stride", "base", "head dim",
+                                  "broadcast"])
+@pytest.mark.parametrize("operand", [0, 1, 2])
+def test_forward_wrapper_refuses_views_tma_cannot_read(case, operand):
+    """The bf16 forward reads q, k and v through TMA: a view it cannot
+    read raises ValueError in the wrapper, before any CUDA call."""
+    good = torch.zeros((2, 256, 3, 64), dtype=torch.bfloat16)
+    qkv = [good, good, good]
+    qkv[operand] = _views_tma_cannot_read()[case]
+    before = tfa.FLASH_FWD.launches
+    with pytest.raises(ValueError):
+        tfa._flash_fwd_cuda(*qkv, None, True, 0.125)
+    assert tfa.FLASH_FWD.launches == before
+
+
+def test_forward_wrapper_refuses_a_scale_that_is_not_positive():
+    """The bf16 kernel takes the row max of the raw scores, which is the
+    max of the scaled ones only for a positive scale."""
+    q = torch.zeros((1, 128, 2, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="positive scale"):
+        tfa._flash_fwd_cuda(q, q, q, None, True, -0.125)
+
+
+def test_kernel_mask_is_16_byte_aligned():
+    """The bf16 forward bulk-copies mask tiles, which needs a 16-byte
+    aligned [b, t] f32 mask: a view at an odd offset is copied."""
+    mask = torch.ones(2 * 256 + 1)[1:].view(2, 256)
+    assert mask.data_ptr() % 16
+    kmask = tfa._kernel_mask(mask, mask.device)
+    assert kmask.data_ptr() % 16 == 0 and torch.equal(kmask, mask)
+    aligned = torch.ones((2, 256))
+    assert tfa._kernel_mask(aligned, aligned.device) is aligned
+
+
+def test_library_digest_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A library rebuilds when its source or any csrc/*.cuh header changes
+    (the kernels include hopper.cuh), and not for other files."""
+    monkeypatch.setattr(_nvcc, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text("// a\n")
+    lib = _nvcc.Library("k")
+    first = lib._digest()
+    assert lib._digest() == first
+    (tmp_path / "a.cuh").write_text("// a, edited\n")
+    edited = lib._digest()
+    assert edited != first
+    (tmp_path / "b.cuh").write_text("// b\n")
+    added = lib._digest()
+    assert added not in (first, edited)
+    (tmp_path / "notes.txt").write_text("not a header\n")
+    assert lib._digest() == added
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n// edited\n')
+    assert lib._digest() != added
+    assert lib.library_path().parent.name == f"k-{lib._digest()}"
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -263,3 +339,99 @@ def test_cuda_forced_flash_raises_for_what_the_kernel_does_not_take(
     with pytest.raises(ValueError, match="flash kernel takes"):
         tattn.dot_product_attention(q, q, q, causal=True)
     assert tfa.FLASH_FWD.launches == before
+
+
+def _card_fwd_inputs(t, d, mask_kind, dtype, device, seed):
+    """q/k/v as the strided slices of one [b, t, 3, h, d] qkv tensor (the
+    layout the attention layer hands the kernel, read in place by TMA) and
+    a [b, t] mask: none, random, or leading padding in row 0 and a fully
+    masked row 1."""
+    rng = np.random.default_rng(seed)
+    qkv = rng.standard_normal((B, t, 3, H, d)).astype(np.float32)
+    qkv = torch.from_numpy(qkv).to(device, dtype)
+    if mask_kind == "none":
+        mask = None
+    elif mask_kind == "random":
+        mask = (rng.random((B, t)) > 0.3).astype(np.float32)
+    else:
+        mask = np.ones((B, t), np.float32)
+        mask[0, :PAD] = 0.0
+        mask[1, :] = 0.0
+    mask = None if mask is None else torch.from_numpy(mask).to(device)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [128, 256, 2048])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("mask_kind", ["none", "random", "padded"])
+def test_cuda_forward_kernel_matches_plain(cuda_device, t, d, dtype, causal,
+                                           mask_kind):
+    """One tile, a few tiles and the flagship length, q/k/v read in place
+    from a qkv tensor. f32: out within 1e-4 (f32 on both sides, no TF32);
+    bf16: out within ``bf16_out_tolerance`` element by element; lse within
+    1e-4 (f32) or 1e-3 (bf16). Rows with no attendable key give exactly
+    (0, -1e30). The kernel launches once."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, mask = _card_fwd_inputs(t, d, mask_kind, dtype, cuda_device,
+                                     seed=7)
+    assert not q.is_contiguous()
+    before = tfa.FLASH_FWD.launches
+    out, lse = tfa.flash_attention_fwd(q, k, v, mask, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.FLASH_FWD.launches == before + 1
+    assert out.dtype == dtype and lse.shape == (B, H, t)
+    ref_out, ref_lse = tfa.flash_attention_fwd_plain(q, k, v, mask,
+                                                     causal=causal)
+    err = (out.float() - ref_out.float()).abs()
+    if dtype == torch.bfloat16:
+        assert (err <= tfa.bf16_out_tolerance(q, k, v, mask, ref_out,
+                                              causal=causal)).all()
+        lse_tol = 1e-3
+    else:
+        assert err.max().item() <= 1e-4
+        lse_tol = 1e-4
+    assert (lse - ref_lse).abs().max().item() <= lse_tol
+    for bi, rows in _dead_rows(mask_kind, causal):
+        assert (out[bi, rows] == 0).all()
+        assert (lse[bi, :, rows] == tfa.NEG_INF).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_forward_kernel_is_deterministic(cuda_device, d):
+    """Each block owns its output tile, so two launches on the same inputs
+    give bitwise equal out and lse, with and without a mask."""
+    q, k, v, mask = _card_fwd_inputs(2048, d, "random", torch.bfloat16,
+                                     cuda_device, seed=8)
+    for m in (None, mask):
+        first = tfa.flash_attention_fwd(q, k, v, m, causal=True)
+        second = tfa.flash_attention_fwd(q, k, v, m, causal=True)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_preprocess_matches_plain_on_a_strided_view(cuda_device, d,
+                                                         dtype):
+    """Δ = rowsum(dO∘O) from the preprocess kernel, with dO a strided
+    slice of [b, t, 2, h, d], against the plain version: within 1e-4 (f32
+    sums of the same products). It launches once."""
+    rng = np.random.default_rng(9)
+    out = torch.from_numpy(rng.standard_normal((B, 2048, H, d))
+                           .astype(np.float32)).to(cuda_device, dtype)
+    douts = torch.from_numpy(rng.standard_normal((B, 2048, 2, H, d))
+                             .astype(np.float32)).to(cuda_device, dtype)
+    dout = douts[:, :, 1]
+    assert not dout.is_contiguous()
+    before = tfa.FLASH_BWD_PREPROCESS.launches
+    delta = tfa._flash_bwd_preprocess_cuda(out, dout)
+    torch.cuda.synchronize()
+    assert tfa.FLASH_BWD_PREPROCESS.launches == before + 1
+    assert delta.shape == (B, H, 2048) and delta.dtype == torch.float32
+    ref = tfa.flash_bwd_preprocess_plain(out, dout)
+    assert (delta - ref).abs().max().item() <= 1e-4
