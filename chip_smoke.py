@@ -73,7 +73,11 @@ from deeplearning4j_tpu_torch.models import transformer_lm  # noqa: E402
 from deeplearning4j_tpu_torch.nn.graph_runtime import ComputationGraph  # noqa: E402
 from deeplearning4j_tpu_torch.ops import _nvcc  # noqa: E402
 from deeplearning4j_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from deeplearning4j_tpu_torch.models import transformer as tlm  # noqa: E402
 from deeplearning4j_tpu_torch.serving import InferenceServer  # noqa: E402
+from deeplearning4j_tpu_torch.serving.decode import (  # noqa: E402
+    DecodeScheduler, PagedDecodeEngine)
+from deeplearning4j_tpu_torch.util.metrics import MetricsRegistry  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 SEED = 20261016
@@ -143,6 +147,30 @@ GRAD_ROUTE_TOL = {"plain": {"max": 0.05, "rms": 0.085},
                   "plain backward": {"max": 0.009, "rms": 0.006}}
 TRAIN_K = 8          # bench.py's fit_repeated(k) rounds
 TRAIN_ROUNDS = 2
+# Decode main path: the flagship widths with a 2048-token window
+# (max_cache_t), served by the paged engine: 8 lanes, 16-token pages, 128
+# pages per lane (the same window), prefill chunks of 256. Traffic: 8
+# requests, prompts of 64-1536 tokens, 128 new tokens each; six greedy
+# (one with an eos_id), two sampled; two share a 512-token prefix, the
+# second submitted once the first has prefilled, so it hits the prefix
+# cache. Run with the host-ticked step and with fused blocks of 16.
+DECODE = {"max_cache_t": 2048, "lanes": 8, "page_size": 16,
+          "pages_per_seq": 128, "prefill_chunk": 256, "new_tokens": 128,
+          "block_lens": (1, 16), "prefix": 512}
+DECODE_SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
+# The engine's next-token probabilities after prefill against the port's
+# rnn_time_step on the same prompt (dense streaming cache), both on the
+# card: max|dp| over the vocabulary. Both sides round every layer to bf16
+# but multiply at different shapes (a lane of a paged batch against one
+# sequence), so they part by bf16 noise. The output probabilities are bf16
+# and about 3e-5 each (32768 classes, random weights), where one bf16 step
+# is 2.4e-7: observed on an H100 (PERF.md, decode) at most 4.77e-7, two
+# steps, in every lane. The bound is about twice that. A lane read through
+# its table with the first page swapped for another lane's reads 1.8e-5
+# and must exceed it. The same bound is the near-tie rule of the greedy
+# comparisons: a token may differ from the oracle's only where the
+# oracle's top-2 margin is below it (exact bf16 ties included).
+DECODE_PROB_TOL = 1e-6
 FLAGSHIP = {"V": 32768, "L": 12, "D": 768, "H": 12, "F": 3072, "T": 2048,
             "B": 8}
 
@@ -1060,21 +1088,461 @@ def phase_training(net):
     return launches
 
 
+# --------------------------------------------------------------------------
+# decode main path
+# --------------------------------------------------------------------------
+
+
+def decode_traffic(V):
+    """The decode phase's 8 requests (prompts from the seed): dicts with
+    the prompt, the sampling settings, and whether it is the prefix-cache
+    hit (submitted late)."""
+    rng = np.random.default_rng(SEED + 6)
+    shared = rng.integers(0, V, DECODE["prefix"]).astype(np.int32)
+
+    def ids(n):
+        return rng.integers(0, V, n).astype(np.int32)
+
+    greedy = {"temperature": 0.0}
+    reqs = [dict(name="g64", prompt=ids(64), **greedy),
+            dict(name="g1536", prompt=ids(1536), **greedy),
+            dict(name="prefix_seed", prompt=np.concatenate([shared, ids(188)]),
+                 **greedy),
+            dict(name="prefix_hit", prompt=np.concatenate([shared, ids(300)]),
+                 late=True, **greedy),
+            dict(name="g1000_eos", prompt=ids(1000), **greedy),
+            dict(name="g256", prompt=ids(256), **greedy),
+            dict(name="s400", prompt=ids(400), seed=1, **DECODE_SAMPLING),
+            dict(name="s1100", prompt=ids(1100), seed=2, **DECODE_SAMPLING)]
+    return reqs
+
+
+def oracle_decode(net, prompt, n):
+    """The port's ``generate`` (greedy) step by step on the card, keeping
+    what it does not return: the first distribution (after the prompt) and
+    the top-2 margin of every step's distribution."""
+    net.rnn_clear_previous_state()
+    with torch.inference_mode():
+        row = net.rnn_time_step(prompt[None, :, None])[0, -1].float()
+        first = row.cpu().numpy()
+        toks, margins = [], []
+        for i in range(n):
+            top = torch.topk(row, 2).values
+            pair = torch.stack([torch.argmax(row).float(),
+                                top[0] - top[1]]).cpu().numpy()
+            toks.append(int(pair[0]))
+            margins.append(float(pair[1]))
+            if i == n - 1:
+                break
+            row = net.rnn_time_step(np.full((1, 1, 1), toks[-1], np.int32)
+                                    )[0, -1].float()
+    return first, toks, margins
+
+
+def near_tie_compare(got, want, margins, bound):
+    """Greedy tokens against the oracle's, up to the first step whose
+    oracle top-2 margin is below ``bound``. Returns None for a full match,
+    else (step, margin) of the divergence; raises on a divergence at a
+    larger margin."""
+    for j, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            if margins[j] < bound:
+                return j, margins[j]
+            raise AssertionError(
+                f"greedy token {j} is {g}, the oracle's {w}, at top-2 "
+                f"margin {margins[j]:.4g} >= {bound}")
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} tokens, the oracle {len(want)}")
+    return None
+
+
+def decode_schedule(sched, traffic, seed_name="prefix_seed"):
+    """Submit the traffic (the late request once its prefix has
+    prefilled), step the scheduler until every request finishes. Returns
+    ({name: request}, wall seconds)."""
+    reqs = {}
+    t0 = time.perf_counter()
+
+    def submit(r):
+        reqs[r["name"]] = sched.submit(
+            r["prompt"], DECODE["new_tokens"],
+            temperature=r["temperature"], eos_id=r.get("eos_id"),
+            seed=r.get("seed"), top_k=r.get("top_k", 0),
+            top_p=r.get("top_p", 1.0), timeout_s=600.0)
+
+    late = [r for r in traffic if r.get("late")]
+    for r in traffic:
+        if not r.get("late"):
+            submit(r)
+    for _ in range(100000):
+        if late and reqs[seed_name].tokens:
+            for r in late:
+                submit(r)
+            late = []
+        if not late and all(q.done for q in reqs.values()):
+            break
+        sched.step_once()
+    wall = time.perf_counter() - t0
+    bad = {n: q.finish_reason for n, q in reqs.items()
+           if q.finish_reason not in ("eos", "max_tokens")}
+    if bad:
+        raise AssertionError(f"decode requests ended {bad}: "
+                             f"{[q.error for q in reqs.values() if q.error]}")
+    return reqs, wall
+
+
+@contextlib.contextmanager
+def first_token_probs(sched):
+    """Within the block, the probabilities each request's first token is
+    drawn from (after its prefill) are kept in the dict the block gets,
+    keyed by request."""
+    seen = {}
+    emit = sched._emit_token
+
+    def spy(seq, probs, **kw):
+        if not seq.req.tokens:
+            seen[id(seq.req)] = np.array(probs, np.float32)
+        return emit(seq, probs, **kw)
+
+    sched._emit_token = spy
+    try:
+        yield seen
+    finally:
+        sched._emit_token = emit
+
+
+@contextlib.contextmanager
+def no_sync_in_fused_loop():
+    """Within the block, every fused decode loop runs with CUDA's sync
+    debug mode at "error": a host sync inside the loop raises."""
+    loop = tlm.fused_decode_loop
+
+    def checked(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return loop(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    tlm.fused_decode_loop = checked
+    try:
+        yield
+    finally:
+        tlm.fused_decode_loop = loop
+
+
+def percentile(xs, q):
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def engine_prefill_row(eng, lane, prompt):
+    """Prefill ``prompt`` into ``lane`` chunk by chunk through the engine
+    alone; the last position's probabilities."""
+    c = eng.prefill_chunk
+    for s0 in range(0, len(prompt), c):
+        chunk = prompt[s0:s0 + c]
+        n = len(chunk)
+        eng.ensure_pages(lane, n)
+        r = eng.rel_pos(lane)
+        ids = np.zeros((1, c), np.int32)
+        ids[0, :n] = chunk
+        slots = np.full((1, c), -1, np.int32)
+        slots[0, :n] = r + np.arange(n)
+        row = eng.run(ids, slots, np.array([r], np.int32),
+                      eng._tables[lane][None], rows=np.array([n - 1]))[0]
+        eng.advance(lane, n)
+    return row
+
+
+def decode_faulty_route(eng, traffic, oracle_first):
+    """A lane's probabilities re-read through its own page table and
+    through the table with its first page swapped for another lane's:
+    max|dp| of each against the oracle. The swap must exceed the bound."""
+    a, b = traffic[0], traffic[5]            # the 64- and 256-token prompts
+    lane_a = eng.acquire_lane(len(a["prompt"]) + 1)
+    lane_b = eng.acquire_lane(len(b["prompt"]) + 1)
+    try:
+        engine_prefill_row(eng, lane_a, a["prompt"])
+        engine_prefill_row(eng, lane_b, b["prompt"])
+        pos = len(a["prompt"]) - 1
+        ids = np.array([[a["prompt"][-1]]], np.int32)
+        res = {}
+        for name, swap in (("own table", False), ("first page swapped", True)):
+            table = eng._tables[lane_a].copy()
+            if swap:
+                table[0] = eng._tables[lane_b][0]
+            row = eng.run(ids, np.full((1, 1), -1, np.int32),
+                          np.array([pos], np.int32), table[None],
+                          rows=np.zeros(1, np.int64))[0]
+            res[name] = float(np.abs(row - oracle_first[a["name"]]).max())
+    finally:
+        eng.release_lane(lane_a)
+        eng.release_lane(lane_b)
+    return res
+
+
+def decode_profile(sched, traffic):
+    """Fill all 8 lanes (prefill done), then time and profile one
+    scheduler tick — one decode step, or one fused block."""
+    reqs = [sched.submit(r["prompt"], DECODE["new_tokens"],
+                         temperature=r["temperature"], seed=r.get("seed"),
+                         top_k=r.get("top_k", 0), top_p=r.get("top_p", 1.0),
+                         timeout_s=600.0) for r in traffic]
+    while any(not q.tokens and not q.done for q in reqs):
+        sched.step_once()
+    if any(q.done for q in reqs):
+        raise AssertionError(f"a request ended before the profiled tick: "
+                             f"{[(q.finish_reason, q.error) for q in reqs]}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched.step_once()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    lanes = sched.active_count()
+    n = sched.engine.block_len
+    window = {}
+
+    def tick():
+        # the host clock around the same tick the profiler records
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sched.step_once()
+        torch.cuda.synchronize()
+        window["ms"] = (time.perf_counter() - t1) * 1e3
+
+    dev_ms = profile(tick, f"one decode tick, {lanes} lanes, block_len {n}",
+                     top=8)
+    sched.stop()
+    return wall_ms, window["ms"], dev_ms
+
+
+def phase_decode():
+    V, L, D, H, F = (FLAGSHIP[k] for k in "VLDHF")
+    conf = transformer_lm(V, n_layers=L, d_model=D, n_heads=H, d_ff=F,
+                          dtype="mixed_bf16", input_ids=True,
+                          seed=SEED + 6, max_cache_t=DECODE["max_cache_t"])
+    net = ComputationGraph(conf).init()
+    traffic = decode_traffic(V)
+    n_new = DECODE["new_tokens"]
+
+    # 1. the oracle: the port's generate on each prompt, alone
+    t0 = time.perf_counter()
+    oracle_first, oracle = {}, {}
+    for r in traffic:
+        greedy = r["temperature"] <= 0
+        first, toks, margins = oracle_decode(net, r["prompt"],
+                                             n_new if greedy else 1)
+        oracle_first[r["name"]] = first
+        if greedy:
+            oracle[r["name"]] = (toks, margins)
+    eos_req = next(r for r in traffic if r["name"] == "g1000_eos")
+    toks, margins = oracle[eos_req["name"]]
+    # the eos: the first token after step 8 that the oracle had not
+    # emitted before, so the request stops mid-run
+    cut = next((j for j in range(8, n_new) if toks[j] not in toks[:j]),
+               n_new - 1) + 1
+    eos_req["eos_id"] = toks[cut - 1]
+    oracle[eos_req["name"]] = (toks[:cut], margins[:cut])
+    check = tlm.generate(net, traffic[0]["prompt"], n_new).tolist()
+    if check != oracle[traffic[0]["name"]][0]:
+        raise AssertionError("generate() differs from its step-by-step "
+                             "replay on the same net")
+    print(f"decode oracle: generate() over {len(oracle)} greedy prompts of "
+          f"{[len(r['prompt']) for r in traffic]} tokens, "
+          f"{time.perf_counter() - t0:.3f} s; eos request stops after "
+          f"{cut} tokens; smallest top-2 margin "
+          f"{min(min(m) for _, m in oracle.values()):.4g}")
+
+    results = {}
+    for block_len in DECODE["block_lens"]:
+        reg = MetricsRegistry()
+        eng = PagedDecodeEngine(
+            net, max_batch=DECODE["lanes"], page_size=DECODE["page_size"],
+            pages_per_seq=DECODE["pages_per_seq"],
+            prefill_chunk=DECODE["prefill_chunk"], registry=reg,
+            block_len=block_len, prefix_cache=True)
+        t0 = time.perf_counter()
+        eng.warmup()
+        warm_s = time.perf_counter() - t0
+        sched = DecodeScheduler(eng, registry=reg, start_thread=False)
+        keys0 = set(eng.dispatch_keys)
+        runs = []
+        for rep in range(2):
+            eng.arena.prefix_index.flush()
+            syncs0 = reg.get("decode_host_syncs_total").value()
+            with first_token_probs(sched) as firsts, no_sync_in_fused_loop():
+                reqs, wall = decode_schedule(sched, traffic)
+            syncs = reg.get("decode_host_syncs_total").value() - syncs0
+            runs.append((reqs, wall, syncs, firsts))
+        if set(eng.dispatch_keys) != keys0:
+            raise AssertionError(f"dispatch shapes outside the warmed "
+                                 f"ladder: {set(eng.dispatch_keys) - keys0}")
+        reqs, wall, syncs, firsts = runs[0]
+        # probabilities after prefill, every lane, both runs
+        prob_err = {n: max(float(np.abs(fs[id(rs[n])]
+                                        - oracle_first[n]).max())
+                           for rs, _, _, fs in runs)
+                    for n in (r["name"] for r in traffic)}
+        # greedy tokens against the oracle
+        matches, diverged = 0, {}
+        for name, (want, margins) in oracle.items():
+            for rs, _, _, _ in runs:
+                d = near_tie_compare(rs[name].tokens, want, margins,
+                                     DECODE_PROB_TOL)
+                if d is not None:
+                    diverged[name] = d
+            matches += name not in diverged
+        sampled = [r["name"] for r in traffic if r["temperature"] > 0]
+        same = {n: runs[0][0][n].tokens == runs[1][0][n].tokens
+                for n in reqs}
+        hit = reqs["prefix_hit"]
+        generated = sum(len(q.tokens) for q in reqs.values())
+        ttft = [q.t_first_token - q.t_submit for q in reqs.values()]
+        tpot = [(q.t_done - q.t_first_token) / (len(q.tokens) - 1)
+                for q in reqs.values() if len(q.tokens) > 1]
+        print(f"decode block_len={block_len}: warmup {warm_s:.3f} s "
+              f"({len(keys0)} dispatch shapes); run walls "
+              f"{[round(w, 4) for _, w, _, _ in runs]} s; {generated} "
+              f"tokens, {generated / wall:.1f} tokens/s; TTFT p50 "
+              f"{percentile(ttft, 50) * 1e3:.2f} ms p99 "
+              f"{percentile(ttft, 99) * 1e3:.2f} ms; time per output token "
+              f"p50 {percentile(tpot, 50) * 1e3:.3f} ms; host syncs per "
+              f"generated token {syncs / generated:.4f} ({syncs:.0f} syncs); "
+              f"prefix hit covered {hit.prefix_covered_tokens} tokens; "
+              f"arena {eng.arena.nbytes()} bytes")
+        print(f"decode block_len={block_len}: max|dp| after prefill vs "
+              "rnn_time_step " + ", ".join(f"{n} {e:.4g}"
+                                           for n, e in prob_err.items())
+              + f" (bound {DECODE_PROB_TOL}); greedy requests matching "
+              f"the oracle in full: {matches} of {len(oracle)}"
+              + "".join(f"; {n} diverges at step {j} (top-2 margin "
+                        f"{m:.4g})" for n, (j, m) in diverged.items())
+              + f"; identical tokens in both runs: {same}")
+        if not max(prob_err.values()) <= DECODE_PROB_TOL:
+            raise AssertionError("engine probabilities after prefill differ "
+                                 "from rnn_time_step")
+        if not all(same[n] for n in sampled):
+            raise AssertionError("sampled requests are not reproducible")
+        if hit.prefix_covered_tokens != DECODE["prefix"]:
+            raise AssertionError(f"the prefix request covered "
+                                 f"{hit.prefix_covered_tokens} tokens")
+        results[block_len] = dict(eng=eng, sched=sched, reqs=reqs,
+                                  diverged=diverged, wall=wall,
+                                  generated=generated)
+
+    # the prefix hit against the same request on a cold engine
+    eng, sched = results[1]["eng"], results[1]["sched"]
+    eng.arena.prefix_index.flush()
+    cold, _ = decode_schedule(sched, [dict(r, late=False) for r in traffic
+                                      if r["name"] == "prefix_hit"])
+    cold_toks = cold["prefix_hit"].tokens
+    if cold["prefix_hit"].prefix_covered_tokens != 0:
+        raise AssertionError("the cold run hit the prefix cache")
+    for bl, res in results.items():
+        got = res["reqs"]["prefix_hit"].tokens
+        first_diff = next((j for j, (x, y) in enumerate(zip(got, cold_toks))
+                           if x != y), None)
+        cold_div = near_tie_compare(cold_toks, *oracle["prefix_hit"],
+                                    DECODE_PROB_TOL)
+        explained = [d[0] for d in (res["diverged"].get("prefix_hit"),
+                                    cold_div) if d is not None]
+        if first_diff is not None and not (explained
+                                           and first_diff >= min(explained)):
+            raise AssertionError(f"prefix hit (block_len {bl}) differs from "
+                                 f"the cold run at token {first_diff}")
+        print(f"decode prefix hit, block_len={bl}: vs cold engine "
+              + ("identical" if first_diff is None else
+                 f"first differs at token {first_diff}, after a near tie "
+                 f"at {min(explained)}"))
+
+    # a faulty route must exceed the probability bound
+    fault = decode_faulty_route(eng, traffic, oracle_first)
+    print(f"decode faulty route: max|dp| vs rnn_time_step "
+          + ", ".join(f"{n} {e:.4g}" for n, e in fault.items())
+          + f" (bound {DECODE_PROB_TOL})")
+    if not fault["first page swapped"] > DECODE_PROB_TOL:
+        raise AssertionError("the probability gate does not see a swapped "
+                             "page")
+
+    # one tick of each step shape, timed and profiled at 8 lanes
+    for bl, res in results.items():
+        res["eng"].arena.prefix_index.flush()
+        wall_ms, window_ms, dev_ms = decode_profile(res["sched"], traffic)
+        busy = "" if dev_ms is None else (
+            f"; the profiled tick: {window_ms:.3f} ms wall, device busy "
+            f"{dev_ms:.3f} ms ({100 * dev_ms / window_ms:.1f}% of that "
+            "window, the profiler's host cost included)")
+        print(f"decode tick, block_len={bl}: {wall_ms:.3f} ms wall for "
+              f"{bl} token(s) per lane{busy}")
+
+    # POST /generate: two greedy requests, concurrently
+    server = InferenceServer(net, decode={
+        "max_batch": DECODE["lanes"], "page_size": DECODE["page_size"],
+        "pages_per_seq": DECODE["pages_per_seq"],
+        "prefill_chunk": DECODE["prefill_chunk"], "block_len": 16})
+    base = f"http://127.0.0.1:{server.port}"
+    http = [traffic[0], traffic[5]]
+    bodies = [None] * len(http)
+
+    def call(i):
+        body = json.dumps({"prompt_ids": http[i]["prompt"].tolist(),
+                           "max_new_tokens": n_new}).encode()
+        rq = urllib.request.Request(base + "/generate", data=body,
+                                    method="POST",
+                                    headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(rq, timeout=300) as resp:
+            bodies[i] = json.loads(resp.read())
+
+    try:
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(http))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        if any(b is None for b in bodies):
+            raise AssertionError("a /generate request did not complete")
+        notes = []
+        for r, b in zip(http, bodies):
+            d = near_tie_compare(b["tokens"], *oracle[r["name"]],
+                                 DECODE_PROB_TOL)
+            notes.append(f"{r['name']} {b['finish_reason']} "
+                         f"{b['n_generated']} tokens, TTFT {b['ttft_ms']} ms, "
+                         + ("equal to the oracle" if d is None else
+                            f"diverges at step {d[0]} (margin {d[1]:.4g})"))
+        health = json.loads(urllib.request.urlopen(base + "/healthz",
+                                                   timeout=30).read())
+        print("decode POST /generate: " + "; ".join(notes)
+              + f"; healthz decode {health['decode']}")
+    finally:
+        server.stop(drain=True, timeout=60)
+
+
+def timed_phase(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.3f} s", flush=True)
+    return out
+
+
 def main():
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
 
-    build = phase_build()
+    build = timed_phase("build", phase_build)
 
-    phase_kernel_vs_plain()
-    timing = phase_flagship_kernel_timing(build)
-    phase_bwd_kernel_vs_plain()
-    bwd_timing = phase_bwd_timing(build)
-    net, fwd_launches = phase_main_path()
-    phase_server(net)
-    train_launches = phase_training(net)
+    timed_phase("forward kernel vs plain", phase_kernel_vs_plain)
+    timing = timed_phase("forward kernel timing",
+                         phase_flagship_kernel_timing, build)
+    timed_phase("backward kernels vs plain", phase_bwd_kernel_vs_plain)
+    bwd_timing = timed_phase("backward kernel timing", phase_bwd_timing,
+                             build)
+    net, fwd_launches = timed_phase("forward main path", phase_main_path)
+    timed_phase("server", phase_server, net)
+    train_launches = timed_phase("training main path", phase_training, net)
+    del net
+    timed_phase("decode main path", phase_decode)
 
     src = "deeplearning4j_tpu_torch/ops/csrc/"
     ref = "deeplearning4j_tpu/ops/flash_attention.py:"

@@ -8,17 +8,26 @@ Pre-norm blocks of ``SelfAttentionLayer`` + time-distributed FFN with
   - ``input_ids=True``: integer token ids [b, t] through an
     ``EmbeddingSequenceLayer`` gather (the realistic-vocab path).
 
-This slice ports the dense-FFN model; the MoE variant (``moe_experts > 0``)
-and autoregressive decode come later.
+Autoregressive decode, host side and device side: ``generate`` (the
+single-sequence full-cache decode through ``rnn_time_step``, also the
+parity oracle of the serving engine), the host sampler ``sample_token``,
+``paged_decode_forward`` (one forward over the paged K/V pools) and
+``fused_decode_loop`` (N decode steps with on-device sampling and no host
+sync). The MoE variant (``moe_experts > 0``) and speculative decoding
+(``draft_transformer_lm``, ``draft_decode_loop``, ``spec_verify``) are
+not yet ported and raise ``NotYetPorted``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
+
+import numpy as np
+import torch
 
 from ..nn.conf.attention import SelfAttentionLayer
 from ..nn.conf.builders import NeuralNetConfiguration
-from ..nn.conf.graph import ElementWiseVertex
+from ..nn.conf.graph import ElementWiseVertex, LayerVertex
 from ..nn.conf.inputs import InputType
 from ..nn.conf.layers import (EmbeddingSequenceLayer, LayerNormalization,
                               NotYetPorted, RnnOutputLayer)
@@ -84,3 +93,244 @@ def transformer_lm(vocab_size: int, *, n_layers: int = 4,
     gb.set_outputs("out")
     gb.set_input_types(InputType.recurrent(1 if input_ids else vocab_size))
     return gb.build()
+
+
+# --------------------------------------------------------------------------
+# autoregressive decode
+# --------------------------------------------------------------------------
+
+
+def attention_vertices(net) -> List[str]:
+    """Topo-ordered names of the net's causal ``SelfAttentionLayer``
+    vertices — the layers that own a K/V cache (dense or paged) during
+    decode."""
+    names = []
+    for name in net.topo_order:
+        v = net.conf.vertices[name]
+        layer = v.layer if isinstance(v, LayerVertex) else None
+        if isinstance(layer, SelfAttentionLayer) and layer.causal:
+            names.append(name)
+    return names
+
+
+def filtered_probs_host(p: np.ndarray, temperature: float, top_k: int,
+                        top_p: float) -> np.ndarray:
+    """Host mirror of ``ops.sampling.filtered_probs`` for ONE row: the same
+    temperature → top-k → renormalize → top-p → renormalize order and the
+    same stable lower-id tie-breaking, in float64."""
+    logits = np.log(np.maximum(p, 1e-30)) / float(temperature)
+    logits -= logits.max()
+    w = np.exp(logits)
+    order = np.argsort(-w, kind="stable")
+    if top_k and top_k > 0:
+        w[order[int(top_k):]] = 0.0
+    w /= max(w.sum(), 1e-30)
+    if 0.0 < top_p < 1.0:
+        w_desc = w[order]
+        before = np.cumsum(w_desc) - w_desc
+        w[order[before >= top_p]] = 0.0
+        w /= max(w.sum(), 1e-30)
+    return w
+
+
+def sample_token(probs, temperature: float = 0.0, rng=None, *,
+                 top_k: int = 0, top_p: float = 1.0) -> int:
+    """Next token from a softmax row, on the host in float64 — shared by
+    :func:`generate` and the ticked serving engine. ``temperature <= 0``
+    is greedy (argmax, ties to the lower id); otherwise an inverse-CDF
+    draw at one uniform from ``rng`` (a ``numpy.random.Generator``) over
+    the filtered distribution — the semantics of the device sampler
+    ``ops.sampling.sample_tokens``."""
+    p = np.asarray(probs, dtype=np.float64).reshape(-1)
+    if temperature <= 0.0:
+        return int(np.argmax(p))
+    if rng is None:
+        raise ValueError("temperature sampling needs an rng")
+    w = filtered_probs_host(p, temperature, top_k, top_p)
+    c = np.cumsum(w)
+    gt = c > float(rng.random()) * c[-1]
+    if gt.any():
+        return int(np.argmax(gt))
+    # u·total reached the top of the CDF (float rounding only): the same
+    # last-positive-weight fallback as the device twin
+    return int(np.max(np.nonzero(w > 0)[0]))
+
+
+def _last_row(out) -> np.ndarray:
+    """The last position's distribution of a ``[1, t, V]`` output, on the
+    host (bf16 widens exactly)."""
+    return out[0, -1].float().cpu().numpy()
+
+
+def generate(net, prompt_ids, max_new_tokens: int, *,
+             temperature: float = 0.0, eos_id: Optional[int] = None,
+             rng=None, top_k: int = 0, top_p: float = 1.0) -> np.ndarray:
+    """Single-sequence full-cache autoregressive decode through the
+    streaming ``rnn_time_step`` path — the offline API and the oracle the
+    paged serving engine is held against.
+
+    The net must be an ids-mode ``transformer_lm`` built with
+    ``max_cache_t``. The first window of the prompt goes in one chunk and
+    any tail past it token by token (eviction is chunk-granular, so this
+    gives every position the exact sliding window). Returns the generated
+    ids as int32 (≤ ``max_new_tokens``; stops at ``eos_id``, which is
+    included)."""
+    from ..util.netutil import streaming_cache_limit
+    limit = streaming_cache_limit(net)
+    if limit is None:
+        raise ValueError(
+            "generate() needs streaming K/V caches — build the net with "
+            "transformer_lm(..., max_cache_t=...)")
+    prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
+    if prompt.size < 1:
+        raise ValueError("generate() needs a non-empty prompt")
+    net.rnn_clear_previous_state()
+    first = min(len(prompt), limit)
+    out = net.rnn_time_step(prompt[None, :first, None])
+    for i in range(first, len(prompt)):
+        out = net.rnn_time_step(prompt[None, i:i + 1, None])
+    probs = _last_row(out)
+    toks: List[int] = []
+    for i in range(int(max_new_tokens)):
+        t = sample_token(probs, temperature, rng, top_k=top_k, top_p=top_p)
+        toks.append(t)
+        if (eos_id is not None and t == eos_id) \
+                or i == int(max_new_tokens) - 1:
+            break
+        probs = _last_row(net.rnn_time_step(np.full((1, 1, 1), t,
+                                                    np.int32)))
+    return np.asarray(toks, np.int32)
+
+
+def oracle_stream_probs(net, token_ids) -> np.ndarray:
+    """Per-position next-token distributions from the dense full-cache
+    streaming path, fed with :func:`generate`'s schedule (first window in
+    one chunk, the tail token by token): ``[len(token_ids), V]`` float64,
+    row i the distribution of the token FOLLOWING position i."""
+    from ..util.netutil import streaming_cache_limit
+    limit = streaming_cache_limit(net)
+    if limit is None:
+        raise ValueError(
+            "oracle_stream_probs() needs streaming K/V caches — build "
+            "the net with transformer_lm(..., max_cache_t=...)")
+    ids = np.asarray(token_ids, np.int32).reshape(-1)
+    if ids.size < 1:
+        raise ValueError("oracle_stream_probs() needs at least one token")
+    net.rnn_clear_previous_state()
+    first = min(len(ids), limit)
+    rows = [net.rnn_time_step(ids[None, :first, None])[0].double().cpu()]
+    for i in range(first, len(ids)):
+        step = net.rnn_time_step(ids[None, i:i + 1, None])
+        rows.append(step[0].double().cpu())
+    return torch.cat(rows, dim=0).numpy()
+
+
+def paged_decode_forward(net, params, k_pools, v_pools, ids, page_tables,
+                         write_slots, rel_pos):
+    """ONE forward of an ids-mode ``transformer_lm`` graph in paged-decode
+    mode: every causal attention vertex reads and writes the block pools
+    through the lanes' page tables (``SelfAttentionLayer.apply_paged``);
+    every other vertex applies as in ``output()``. Tensors on the net's
+    device; reads nothing back to the host.
+
+    ids ``[S, t_new]`` (padded lanes: any value — their writes are dropped
+    and their outputs ignored); page_tables ``[S, P]``; write_slots
+    ``[S, t_new]`` (-1 = dropped); rel_pos ``[S]``. Returns ``(probs
+    [S, t_new, V], k_pools, v_pools)``; the pools are written in place."""
+    attn = attention_vertices(net)
+    if len(attn) != len(k_pools):
+        raise ValueError(
+            f"{len(k_pools)} pools for {len(attn)} attention vertices")
+    pool_ix = {n: i for i, n in enumerate(attn)}
+    k_pools, v_pools = list(k_pools), list(v_pools)
+    acts = {net.conf.network_inputs[0]: ids[:, :, None]}
+    for name in net.topo_order:
+        in_names = net.conf.vertex_inputs[name]
+        i = pool_ix.get(name)
+        v = net.conf.vertices[name]
+        if i is not None:
+            out, k_pools[i], v_pools[i] = v.layer.apply_paged(
+                params[name], acts[in_names[0]], k_pools[i], v_pools[i],
+                page_tables, write_slots, rel_pos, policy=net.policy)
+        else:
+            out, _ = v.apply(params[name], [acts[n] for n in in_names],
+                             state=None, policy=net.policy,
+                             masks=[None] * len(in_names))
+        acts[name] = out
+    return acts[net.conf.network_outputs[0]], k_pools, v_pools
+
+
+def fused_decode_loop(net, params, k_pools, v_pools, last_tokens,
+                      page_tables, rel_pos, active, budget, eos_ids,
+                      temperature, top_k, top_p, uniforms, *,
+                      any_sampled: bool):
+    """N decode steps over the paged arena with no host sync (N =
+    ``uniforms.shape[1]``). Each step writes every lane's pending token's
+    K/V, runs one paged forward (t_new = 1, the ticked step's math),
+    picks the next token on the device (greedy argmax, or the filtered
+    inverse CDF at that step's host-drawn uniform), and folds the
+    EOS/budget self-retire mask: a finished lane keeps computing (fixed
+    shapes) but its writes turn to ``-1`` slots (dropped) and its outputs
+    are marked invalid.
+
+    The reference runs this as a ``lax.while_loop`` that exits once every
+    lane is done. Exiting early here would need the host to read ``done``
+    — a sync per step — so the port always runs all N steps. The extra
+    steps write nothing and emit nothing: ``tokens``, ``valid`` and
+    ``n_emitted`` are the same. ``any_sampled`` is the host's knowledge of
+    whether any lane has ``temperature > 0`` (the reference's device-side
+    ``lax.cond``); an all-greedy block skips the filter pipeline.
+
+    last_tokens ``[S]`` each lane's pending token; rel_pos ``[S]`` its
+    view-relative slot (the host pre-draws pages for the whole block);
+    active ``[S]`` (padded lanes start retired); budget ``[S]`` tokens the
+    lane may still emit; eos_ids ``[S]`` (-1 = none). Returns ``(tokens
+    [S, N], valid [S, N], n_emitted [S], done [S], k_pools, v_pools)``,
+    all on the device."""
+    from ..ops import sampling as _sampling
+    n_steps = uniforms.shape[1]
+    s = last_tokens.shape[0]
+    dev = last_tokens.device
+    cur = last_tokens.to(torch.int32)
+    done = ~active
+    n_emitted = torch.zeros(s, dtype=torch.int32, device=dev)
+    toks = torch.full((s, n_steps), -1, dtype=torch.int32, device=dev)
+    valid = torch.zeros((s, n_steps), dtype=torch.bool, device=dev)
+    rel = rel_pos.to(torch.int32)
+    for i in range(n_steps):
+        slot = torch.where(done, -1, rel + i)
+        probs, k_pools, v_pools = paged_decode_forward(
+            net, params, k_pools, v_pools, cur[:, None], page_tables,
+            slot[:, None], rel + i)
+        row = probs[:, 0, :]
+        if any_sampled:
+            tok = _sampling.sample_tokens(row, temperature, top_k, top_p,
+                                          uniforms[:, i])
+        else:
+            tok = torch.argmax(row, dim=-1).to(torch.int32)
+        emit = ~done
+        n_emitted = n_emitted + emit.to(torch.int32)
+        hit_eos = (eos_ids >= 0) & (tok == eos_ids)
+        done = done | (emit & (hit_eos | (n_emitted >= budget)))
+        cur = torch.where(emit, tok, cur)
+        toks[:, i] = torch.where(emit, tok, -1)
+        valid[:, i] = emit
+    return toks, valid, n_emitted, done, k_pools, v_pools
+
+
+def draft_transformer_lm(vocab_size: int, **kw):
+    """The draft model family of speculative decoding: not yet ported."""
+    raise NotYetPorted("speculative decoding (draft_transformer_lm) is not "
+                       "yet ported to the PyTorch package")
+
+
+def draft_decode_loop(*args, **kw):
+    """The draft half of a speculative block: not yet ported."""
+    raise NotYetPorted("speculative decoding (draft_decode_loop) is not "
+                       "yet ported to the PyTorch package")
+
+
+def spec_verify(*args, **kw):
+    """The verify half of a speculative block: not yet ported."""
+    raise NotYetPorted("speculative decoding (spec_verify) is not yet "
+                       "ported to the PyTorch package")

@@ -12,9 +12,13 @@ its gradients (torch autograd in place of ``jax.grad``), gradient
 normalization, the updater's deltas, and the parameters updated in place.
 ``fit_batch`` takes one step, ``fit_repeated`` K steps on one batch and
 ``fit_scan`` one step on each of K staged batches; the losses stay on the
-device. Truncated BPTT, gradient checkpointing, dropout, listeners and
-streaming (``rnn_time_step``) are not yet ported and raise
-``NotYetPorted``.
+device. Truncated BPTT, gradient checkpointing, dropout and listeners
+are not yet ported and raise ``NotYetPorted``.
+
+Streaming inference (``rnn_time_step``) carries each attention layer's
+K/V cache between calls; the fed-step count that the reference keeps
+in-band in the cache lives on the host here (``_rnn_steps_fed`` and each
+cache's ``"pos"``).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from __future__ import annotations
 import hashlib
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from .. import dtypes as _dtypes
@@ -29,6 +34,7 @@ from .. import losses as _losses
 from ..optimize import updaters as _updaters
 from .conf.graph import ComputationGraphConfiguration, LayerVertex
 from .conf.layers import NotYetPorted
+from ..util.netutil import note_streamed_steps, precheck_streamed_steps
 
 
 def _as_list(v) -> list:
@@ -75,6 +81,9 @@ class ComputationGraph(torch.nn.Module):
         self._output_layer_names = [
             n for n in conf.network_outputs
             if hasattr(self._vertex_layer(n), "compute_score_array")]
+        # streaming carries (rnn_time_step): {vertex: cache state}
+        self._rnn_state: Optional[Dict[str, Dict[str, Any]]] = None
+        self._rnn_steps_fed = 0
 
     def _vertex_layer(self, name: str):
         v = self.conf.vertices[name]
@@ -219,6 +228,70 @@ class ComputationGraph(torch.nn.Module):
             acts = self._forward(inputs)
         outs = [acts[n] for n in self.conf.network_outputs]
         return outs[0] if len(outs) == 1 else outs
+
+    def _zero_rnn_carry(self, batch: int) -> Dict[str, Dict[str, Any]]:
+        """Fresh streaming carries: each layer with a ``_zero_state`` (the
+        attention layers built with ``max_cache_t``) gets its zero K/V
+        cache."""
+        carry = {}
+        for name in self.topo_order:
+            layer = self._vertex_layer(name)
+            if (layer is not None and hasattr(layer, "_zero_state")
+                    and getattr(layer, "max_cache_t", None) is not None):
+                carry[name] = layer._zero_state(batch, self.policy,
+                                                self.device)
+        return carry
+
+    def rnn_time_step(self, *inputs):
+        """Streaming inference: feed one (or a few) timesteps, carrying each
+        attention layer's K/V cache between calls (the reference's
+        ``rnnTimeStep``). Inputs: ``[b, f]`` (one step; the output is
+        squeezed back) or ``[b, t, f]``; token ids ``[b, t, 1]``. The
+        strict-mode precheck runs before any device work."""
+        inputs = _as_list(
+            inputs[0] if len(inputs) == 1 and isinstance(inputs[0], (list, tuple))
+            else list(inputs))
+        shape = np.shape(inputs[0])
+        squeeze = len(shape) == 2
+        t_new = 1 if squeeze else shape[1]
+        if self._rnn_state is None:
+            self._rnn_steps_fed = 0
+        # strict-mode streaming caches refuse the overflowing chunk before
+        # any device work
+        precheck_streamed_steps(self, t_new)
+        inputs = [self._to_input(x) for x in inputs]
+        if squeeze:
+            inputs = [x[:, None, :] for x in inputs]
+        if self._rnn_state is None:
+            self._rnn_state = self._zero_rnn_carry(inputs[0].shape[0])
+        params = self._require_params()
+        acts: Dict[str, torch.Tensor] = dict(zip(self.conf.network_inputs,
+                                                 inputs))
+        with torch.inference_mode():
+            for name in self.topo_order:
+                v = self.conf.vertices[name]
+                in_names = self.conf.vertex_inputs[name]
+                carry = self._rnn_state.get(name)
+                out, st = v.apply(params[name], [acts[i] for i in in_names],
+                                  state=(carry if carry is not None
+                                         else self.state.get(name)),
+                                  policy=self.policy,
+                                  masks=[None] * len(in_names))
+                if carry is not None:
+                    self._rnn_state[name] = st
+                acts[name] = out
+        # count only steps the cache absorbed (a refused chunk raised above)
+        note_streamed_steps(self, t_new)
+        outs = [acts[n] for n in self.conf.network_outputs]
+        if squeeze:
+            outs = [o[:, 0, :] if o.ndim == 3 else o for o in outs]
+        return outs[0] if len(outs) == 1 else outs
+
+    def rnn_clear_previous_state(self) -> None:
+        """Reset the streaming carries (the reference's
+        ``rnnClearPreviousState``)."""
+        self._rnn_state = None
+        self._rnn_steps_fed = 0
 
     # ------------------------------------------------------------------
     # loss

@@ -1,0 +1,529 @@
+"""Paged KV-cache arena: preallocated block pools, a refcounted page
+allocator and the prefix index (counterpart of the JAX package's
+``serving/kv_cache.py``; the allocator and the index are host code and
+carry over unchanged, the pools are torch tensors on the engine's device).
+
+K/V live in per-layer block pools shared by every in-flight sequence.
+Each sequence owns an ordered page table of physical page ids; pages are
+handed out lazily as decode advances and return to the free list when the
+sequence retires.
+
+Two-level accounting:
+
+- **reservation** (admission control): a sequence reserves its worst-case
+  page count when admitted, so a running sequence can never deadlock
+  waiting for a page another running sequence holds;
+- **draw** (lazy allocation): physical pages leave the free list one at a
+  time, against the reservation, as the sequence grows.
+
+Cross-request prefix caching extends the allocator with reference counts:
+a page is live while any owner — a lane or the :class:`PrefixIndex` —
+holds a reference. The index maps full-page-aligned token prefixes to page
+chains; an admission whose prefix is resident maps the shared pages into
+its table and skips their prefill. Cached-but-unpinned chains count as
+reclaimable (``reserved <= free + reclaimable``) and ``draw()`` evicts
+the LRU unpinned leaf when the free list runs dry. Writes never target
+shared pages (sharing is full-page only), so copy-on-write is a metadata
+detach: a window-evicting lane releases its reference on a shared page and
+draws a private tail instead of recycling it in place.
+
+Sliding-window overflow is PAGE EVICTION: once a sequence holds
+``pages_per_seq`` pages its oldest page is recycled as the new tail.
+
+Thread-safety: the allocator locks itself; the prefix index shares the
+allocator's RLock. The pools are owned by the decode engine, which writes
+them only under the scheduler's dispatch lock.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import threading
+import weakref
+from collections import deque
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.paged_attention import pool_rows
+from ..util import metrics as _metrics
+
+__all__ = ["PageAllocator", "PagedKVArena", "PrefixIndex"]
+
+# kv_page_refcount histogram buckets: refcounts are small integers
+# (1 = private, 2+ = shared)
+_REFCOUNT_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0)
+
+
+class PageAllocator:
+    """Refcounted free-list allocator over ``num_pages`` physical pages
+    with reservation accounting (see module docstring).
+
+    ``draw()`` hands a page out at refcount 1; ``retain()`` adds a
+    reference (a prefix-cache hit mapping a shared page, or the index
+    itself caching a chain); ``free()`` releases references and returns
+    a page to the free list only when the last one drops. With a
+    :class:`PrefixIndex` attached, cached-but-unpinned pages are
+    *reclaimable* and extend admission capacity: ``reserved <= free +
+    reclaimable`` is the invariant that keeps ``draw()`` infallible.
+    """
+
+    def __init__(self, num_pages: int,
+                 registry: Optional[_metrics.MetricsRegistry] = None):
+        if num_pages < 1:
+            raise ValueError(f"num_pages must be >= 1, got {num_pages}")
+        self.num_pages = int(num_pages)
+        self._free = deque(range(self.num_pages))
+        self._refcount = [0] * self.num_pages
+        self._shared = 0          # pages with refcount >= 2
+        self._reserved = 0
+        self._index: Optional["PrefixIndex"] = None
+        # RLock: PrefixIndex methods run under this lock and call back
+        # into the unlocked _retain/_release internals; the engine may
+        # also hold it across lookup+admit to make a hit-admission atomic
+        self._lock = threading.RLock()
+        reg = registry if registry is not None else _metrics.REGISTRY
+        self._m_evicted = reg.counter(
+            "kv_pages_evicted_total",
+            "KV pages recycled by sliding-window eviction")
+        self._m_cow = reg.counter(
+            "kv_pages_cow_total",
+            "Shared KV pages detached copy-on-write at window eviction "
+            "(reference released, private tail drawn instead)")
+        self._m_refcount = reg.histogram(
+            "kv_page_refcount",
+            "Page reference count observed at each retain()",
+            buckets=_REFCOUNT_BUCKETS)
+        # weakly bound callbacks: on a SHARED registry the newest arena's
+        # gauges win (per-server registries are the default, as with the
+        # serving gauges), and a retired allocator is collectable — a
+        # dead ref raises, which drops the series at exposition
+        ref = weakref.ref(self)
+
+        def _sample(attr):
+            def fn():
+                alloc = ref()
+                if alloc is None:
+                    raise LookupError("allocator retired")
+                return float(getattr(alloc, attr))
+            return fn
+
+        reg.gauge(
+            "kv_pages_in_use",
+            "KV arena pages currently owned by live sequences"
+        ).set_function(_sample("pages_in_use"))
+        reg.gauge(
+            "kv_pages_reserved",
+            "KV arena pages reserved by admitted sequences but not yet "
+            "drawn").set_function(_sample("reserved"))
+        reg.gauge(
+            "kv_pages_shared",
+            "KV pages referenced by more than one owner (lanes and/or "
+            "the prefix index)").set_function(_sample("shared_pages"))
+
+    def attach_index(self, index: "PrefixIndex") -> None:
+        self._index = index
+
+    # -- unlocked internals (caller holds self._lock) ------------------
+
+    def _reclaimable_locked(self) -> int:
+        return self._index.reclaimable if self._index is not None else 0
+
+    def _retain_locked(self, page: int) -> None:
+        if not (0 <= page < self.num_pages):
+            raise ValueError(f"retain() of unknown page {page}")
+        rc = self._refcount[page]
+        if rc < 1:
+            raise ValueError(f"retain() of free page {page}")
+        self._refcount[page] = rc + 1
+        if rc == 1:
+            self._shared += 1
+            if self._index is not None:
+                self._index._on_pin(page)
+        self._m_refcount.observe(float(rc + 1))
+
+    def _release_locked(self, pages: Sequence[int]) -> None:
+        for p in pages:
+            if not (0 <= p < self.num_pages):
+                raise ValueError(f"free() of unknown page {p}")
+            rc = self._refcount[p] - 1
+            if rc < 0:
+                raise ValueError(f"free() of unreferenced page {p}")
+            self._refcount[p] = rc
+            if rc == 0:
+                self._free.append(p)
+            elif rc == 1:
+                self._shared -= 1
+                if self._index is not None:
+                    self._index._on_unpin(p)
+
+    # -- public API ----------------------------------------------------
+
+    @property
+    def pages_in_use(self) -> int:
+        with self._lock:
+            return self.num_pages - len(self._free)
+
+    @property
+    def reserved(self) -> int:
+        with self._lock:
+            return self._reserved
+
+    @property
+    def shared_pages(self) -> int:
+        with self._lock:
+            return self._shared
+
+    def refcount(self, page: int) -> int:
+        with self._lock:
+            return self._refcount[page]
+
+    def available(self) -> int:
+        """Pages an admission could still reserve (reclaimable cached
+        chains count — draw() evicts them on demand)."""
+        with self._lock:
+            return (len(self._free) + self._reclaimable_locked()
+                    - self._reserved)
+
+    def reserve(self, n: int) -> bool:
+        """Reserve ``n`` pages for a sequence about to be admitted.
+        False (and no state change) when the arena cannot guarantee
+        them."""
+        with self._lock:
+            if n > (len(self._free) + self._reclaimable_locked()
+                    - self._reserved):
+                return False
+            self._reserved += n
+            return True
+
+    def admit(self, need: int, retain_pages: Sequence[int] = ()) -> bool:
+        """Atomic prefix-hit admission: retain ``retain_pages`` (the
+        covered prefix chain) AND reserve ``need`` uncovered pages, or do
+        neither. The check runs AFTER the retains because pinning a
+        cached chain removes it from the reclaimable pool — an admission
+        that covers its whole prompt (``need == 0``) can still fail when
+        pinning would break ``reserved <= free + reclaimable``."""
+        with self._lock:
+            taken: List[int] = []
+            try:
+                for p in retain_pages:
+                    self._retain_locked(p)
+                    taken.append(p)
+            except ValueError:
+                self._release_locked(taken)
+                return False
+            if need > (len(self._free) + self._reclaimable_locked()
+                       - self._reserved):
+                self._release_locked(taken)
+                return False
+            self._reserved += need
+            return True
+
+    def retain(self, page: int) -> None:
+        """Add a reference to a live page (prefix-cache sharing)."""
+        with self._lock:
+            self._retain_locked(page)
+
+    def unreserve(self, n: int) -> None:
+        """Return ``n`` unused reservations (early retirement: EOS before
+        max_new_tokens, or a capped window that never grew that far)."""
+        with self._lock:
+            if n > self._reserved:
+                raise ValueError(
+                    f"unreserve({n}) exceeds outstanding reservation "
+                    f"{self._reserved}")
+            self._reserved -= n
+
+    def draw(self) -> int:
+        """Hand out one physical page against an existing reservation."""
+        with self._lock:
+            if self._reserved < 1:
+                raise RuntimeError(
+                    "draw() without a reservation — admission control "
+                    "must reserve before the sequence grows")
+            self._reserved -= 1
+            if not self._free:
+                # reserved <= free + reclaimable: the shortfall is
+                # covered by unpinned cached chains — evict LRU leaves
+                # until a page frees up
+                while not self._free:
+                    if (self._index is None
+                            or not self._index._reclaim_one_locked()):
+                        raise RuntimeError(
+                            "allocator invariant breached: reservation "
+                            "outstanding but no free or reclaimable page")
+            page = self._free.popleft()
+            self._refcount[page] = 1
+            return page
+
+    def free(self, pages: Sequence[int]) -> None:
+        """Release references (sequence retired / CoW detach). A page
+        returns to the free list when its LAST reference drops."""
+        with self._lock:
+            self._release_locked(pages)
+
+    def note_eviction(self, n: int = 1) -> None:
+        self._m_evicted.inc(n)
+
+    def note_cow(self, n: int = 1) -> None:
+        self._m_cow.inc(n)
+
+
+class _PrefixEntry:
+    __slots__ = ("key", "parent", "page", "tokens", "children",
+                 "pinned_desc", "last_use")
+
+    def __init__(self, key, parent, page, tokens, last_use):
+        self.key = key
+        self.parent = parent          # parent entry's key, or None (root)
+        self.page = page              # physical page id (index holds 1 ref)
+        self.tokens = tokens          # this page's token ids (verification)
+        self.children = 0             # resident child entries
+        self.pinned_desc = 0          # self-pin + children with pinned_desc>0
+        self.last_use = last_use
+
+
+class PrefixIndex:
+    """Hash-consed chain over full-page-aligned token prefixes.
+
+    Each entry caches ONE page keyed by ``blake2s(parent_key ||
+    page_tokens)`` — a radix tree flattened to a dict, with the page's
+    own tokens stored for collision-proof verification (the parent
+    digest binds everything before it). The index holds one allocator
+    reference per cached page, so a cached page can never be recycled
+    under a reader.
+
+    Pinning: an entry is *self-pinned* while its page has references
+    beyond the index's own (a lane mapped it). ``pinned_desc`` counts
+    self-pin plus pinned descendants, propagated incrementally on the
+    allocator's 1<->2 refcount transitions; an entry with
+    ``pinned_desc == 0`` is reclaimable and a reclaimable LEAF may be
+    evicted (LRU by ``last_use``) when ``draw()`` runs dry. Eviction is
+    therefore exactly refcount-aware: shared pages are refused by
+    construction.
+
+    All methods run under the owning allocator's RLock.
+    """
+
+    def __init__(self, allocator: PageAllocator, page_size: int):
+        self.allocator = allocator
+        self.page_size = int(page_size)
+        self._entries: Dict[bytes, _PrefixEntry] = {}
+        self._bypage: Dict[int, bytes] = {}
+        self._reclaimable = 0
+        self._stamp = 0
+        allocator.attach_index(self)
+
+    # -- stats ---------------------------------------------------------
+
+    @property
+    def reclaimable(self) -> int:
+        return self._reclaimable
+
+    @property
+    def cached_pages(self) -> int:
+        with self.allocator._lock:
+            return len(self._entries)
+
+    # -- key derivation ------------------------------------------------
+
+    def _key(self, parent_key: Optional[bytes], tokens) -> bytes:
+        h = hashlib.blake2s(digest_size=16)
+        if parent_key is not None:
+            h.update(parent_key)
+        h.update(np.asarray(tokens, np.int64).tobytes())
+        return h.digest()
+
+    # -- allocator callbacks (lock held) -------------------------------
+
+    def _adjust(self, entry: Optional[_PrefixEntry], delta: int) -> None:
+        """Propagate a pin/unpin up the ancestor chain: each 0<->positive
+        transition of ``pinned_desc`` contributes one unit to the parent
+        (walk depth is bounded by pages_per_seq)."""
+        while entry is not None:
+            was = entry.pinned_desc > 0
+            entry.pinned_desc += delta
+            now = entry.pinned_desc > 0
+            if was == now:
+                break
+            self._reclaimable += -1 if now else 1
+            delta = 1 if now else -1
+            entry = (self._entries.get(entry.parent)
+                     if entry.parent is not None else None)
+
+    def _on_pin(self, page: int) -> None:
+        key = self._bypage.get(page)
+        if key is not None:
+            self._adjust(self._entries[key], +1)
+
+    def _on_unpin(self, page: int) -> None:
+        key = self._bypage.get(page)
+        if key is not None:
+            self._adjust(self._entries[key], -1)
+
+    # -- lookup / register / reclaim -----------------------------------
+
+    def lookup(self, prompt_ids, max_pages: int) -> List[int]:
+        """Longest resident full-page prefix of ``prompt_ids`` → its page
+        chain (LRU-stamped). Returns physical page ids WITHOUT retaining
+        them — pair with ``allocator.admit(need, pages)`` under the
+        allocator lock (the engine's admission path does)."""
+        ps = self.page_size
+        full = min(len(prompt_ids) // ps, int(max_pages))
+        pages: List[int] = []
+        with self.allocator._lock:
+            self._stamp += 1
+            parent: Optional[bytes] = None
+            for i in range(full):
+                toks = tuple(int(t) for t in prompt_ids[i * ps:(i + 1) * ps])
+                key = self._key(parent, toks)
+                e = self._entries.get(key)
+                if e is None or e.tokens != toks:
+                    break
+                e.last_use = self._stamp
+                pages.append(e.page)
+                parent = key
+            return pages
+
+    def register(self, prompt_ids, pages: Sequence[int]) -> int:
+        """Publish a freshly prefilled lane's full-page prefix chain.
+        ``pages`` are the lane's held pages for ``prompt_ids``'s full
+        pages, in order. Existing keys are kept (only LRU-stamped): the
+        cached page holds identical K/V by construction — K/V content is
+        a deterministic function of the token prefix. Returns the number
+        of NEW entries."""
+        ps = self.page_size
+        new = 0
+        with self.allocator._lock:
+            self._stamp += 1
+            parent: Optional[bytes] = None
+            for i, page in enumerate(pages):
+                toks = tuple(int(t)
+                             for t in prompt_ids[i * ps:(i + 1) * ps])
+                key = self._key(parent, toks)
+                e = self._entries.get(key)
+                if e is not None:
+                    e.last_use = self._stamp
+                    parent = key
+                    continue
+                # index takes its own reference; the lane's reference
+                # makes the page immediately self-pinned
+                self.allocator._retain_locked(page)
+                e = _PrefixEntry(key, parent, page, toks, self._stamp)
+                self._entries[key] = e
+                self._bypage[page] = key
+                if parent is not None:
+                    self._entries[parent].children += 1
+                if self.allocator._refcount[page] > 1:
+                    # seed self-pin, then propagate to ancestors
+                    e.pinned_desc = 1
+                    pe = (self._entries.get(parent)
+                          if parent is not None else None)
+                    self._adjust(pe, +1)
+                else:
+                    self._reclaimable += 1
+                parent = key
+                new += 1
+            return new
+
+    def _reclaim_one_locked(self) -> bool:
+        """Evict the LRU reclaimable LEAF, freeing its page. Called by
+        ``draw()`` under the allocator lock when the free list is dry.
+        O(entries) scan — entries are bounded by num_pages."""
+        best: Optional[_PrefixEntry] = None
+        for e in self._entries.values():
+            if e.pinned_desc == 0 and e.children == 0:
+                if best is None or e.last_use < best.last_use:
+                    best = e
+        if best is None:
+            return False
+        self._remove_locked(best)
+        return True
+
+    def _remove_locked(self, e: _PrefixEntry) -> None:
+        del self._entries[e.key]
+        del self._bypage[e.page]
+        if e.parent is not None:
+            pe = self._entries.get(e.parent)
+            if pe is not None:
+                pe.children -= 1
+        self._reclaimable -= 1
+        # drops the index's reference: refcount 1 -> 0 -> free list
+        self.allocator._release_locked([e.page])
+
+    def flush(self) -> int:
+        """Drop every cached chain (pool reset or model swap — the
+        cached K/V no longer matches what a hit would read). Pages still
+        referenced by live lanes survive until those lanes retire.
+        Returns the number of entries dropped."""
+        with self.allocator._lock:
+            n = len(self._entries)
+            for e in self._entries.values():
+                self.allocator._release_locked([e.page])
+            self._entries.clear()
+            self._bypage.clear()
+            self._reclaimable = 0
+            return n
+
+
+class PagedKVArena:
+    """Per-attention-layer K/V block pools + the shared allocator.
+
+    ``layer_dims`` maps attention vertex name → ``(heads, head_dim)`` in
+    the order the decode walker visits them. ``sentinel`` (= num_pages)
+    marks page-table holes. Each pool is ``[num_pages + 2, page_size, h,
+    d]`` of ``dtype`` on ``device``: the allocatable pages, the sentinel
+    page (always zeros; holes read it) and a trash page that absorbs
+    dropped writes (``ops/paged_attention.py``). Float pools only: int8
+    pages (``kv_dtype="int8"``) are not yet ported. ``prefix_cache=True``
+    attaches a :class:`PrefixIndex` to the allocator.
+    """
+
+    def __init__(self, layer_dims: Dict[str, Tuple[int, int]], *,
+                 num_pages: int, page_size: int, dtype=torch.float32,
+                 device="cpu",
+                 registry: Optional[_metrics.MetricsRegistry] = None,
+                 prefix_cache: bool = False):
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        if not layer_dims:
+            raise ValueError("arena needs at least one attention layer")
+        self.page_size = int(page_size)
+        self.num_pages = int(num_pages)
+        self.sentinel = self.num_pages
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.kv_dtype = None
+        self.layer_names = list(layer_dims)
+        self._layer_dims = dict(layer_dims)
+        self.k_pools: List[torch.Tensor] = []
+        self.v_pools: List[torch.Tensor] = []
+        self.reset_pools()
+        self.allocator = PageAllocator(num_pages, registry=registry)
+        self.prefix_index = (PrefixIndex(self.allocator, self.page_size)
+                             if prefix_cache else None)
+
+    def reset_pools(self) -> None:
+        """Fresh zero pools: at construction and after a failed dispatch
+        (the pools may hold a half-written step, and the sentinel page
+        must be zeros). Callers recovering a live engine must also
+        ``prefix_index.flush()`` — zeroed pools would serve stale prefix
+        hits."""
+        self.k_pools = []
+        self.v_pools = []
+        rows = pool_rows(self.num_pages)
+        for h, d in self._layer_dims.values():
+            shape = (rows, self.page_size, h, d)
+            self.k_pools.append(torch.zeros(shape, dtype=self.dtype,
+                                            device=self.device))
+            self.v_pools.append(torch.zeros(shape, dtype=self.dtype,
+                                            device=self.device))
+
+    def pages_for(self, n_tokens: int) -> int:
+        """Pages needed to hold ``n_tokens`` (ceil)."""
+        return -(-int(n_tokens) // self.page_size)
+
+    def nbytes(self) -> int:
+        return sum(p.numel() * p.element_size()
+                   for p in self.k_pools + self.v_pools)

@@ -3,19 +3,27 @@ package's ``serving/server.py``).
 
 Endpoints:
   POST /predict   {"inputs": [[...], ...]} → {"outputs": [[...], ...]}
+  POST /generate  {"prompt_ids": [...], "max_new_tokens": N,
+                   "temperature": T, "top_k": k, "top_p": p, "seed": s,
+                   "eos_id": id, "timeout_s": s}
+                  → {"tokens": [...], "finish_reason": "eos|max_tokens|
+                     deadline", "ttft_ms": ..., "n_generated": N}
+                  (requires ``decode=``: the continuous-batching scheduler
+                  over the paged KV arena, serving/decode.py)
   GET  /healthz   {"ok": true, "live": true, "ready": true,
                    "ready_reasons": [], "model": "...", "served": N,
                    "shed": n, "queue_depth": n, "queue_capacity": n,
                    "breaker": "closed|open|half_open", "draining": bool,
-                   "model_digest": "...", "model_generation": n}
+                   "model_digest": "...", "model_generation": n,
+                   "decode": {"active": n, "queued": n, "prefix_cache":
+                   {...}} when decode is enabled}
   GET  /livez     200 {"live": true} while the batcher loop is up
   GET  /readyz    200 {"ready": true} when the replica should be admitted
                   traffic; 503 + the gating reasons otherwise
   GET  /metrics   Prometheus text exposition of this server's registry
 
-This slice ports the ``/predict`` half. Continuous-batched decode
-(``decode=``, ``POST /generate``), ``/profile``, ``/model`` and the
-``/debug/*`` endpoints come with later slices.
+``/profile``, ``/model`` and the ``/debug/*`` endpoints (with the
+request timelines they render) come with later slices.
 
 Design: requests land in a bounded queue; a batcher thread coalesces up to
 ``max_batch`` examples (waiting at most ``batch_timeout_ms`` after the
@@ -23,8 +31,9 @@ first) into ONE ``model.output`` call on the server's device. Batches are
 padded to power-of-two sizes. Resilience as in the reference: load
 shedding (503 + ``Retry-After`` when the queue is full), per-request
 deadlines (504, never a model call for an expired request), a circuit
-breaker over model failures, and graceful drain. Fault seam:
-``"serving.infer"`` around the batched model call.
+breaker over model failures, and graceful drain that also waits for
+in-flight generative sequences. Fault seam: ``"serving.infer"`` around
+the batched model call.
 """
 
 from __future__ import annotations
@@ -49,6 +58,11 @@ from ..util import metrics as _metrics
 from ..util import tracing as _tracing
 from ..util.resilience import (SYSTEM_CLOCK, STATE_VALUES, CircuitBreaker,
                                Clock, Deadline, metrics_transition_hook)
+
+
+class ModelSwapRefused(RuntimeError):
+    """``set_model`` refused: generative sequences are in flight (their
+    K/V pages hold the old model's activations). Drain first."""
 
 
 def drain_counter(registry=None) -> _metrics.Counter:
@@ -98,10 +112,18 @@ class _Pending:
 
 
 class InferenceServer:
-    """Serve ``model.output`` over HTTP.
+    """Serve ``model.output`` (and, with ``decode=``, generation) over
+    HTTP.
 
     ``device`` (default ``"cuda"``, which raises without a card) is where
-    each coalesced batch is placed before ``model.output`` is called."""
+    each coalesced batch is placed before ``model.output`` is called; the
+    decode engine runs on the model's own device.
+
+    ``decode``: a prebuilt :class:`~.decode.DecodeScheduler`, or a dict of
+    engine and scheduler settings to build one over this model and this
+    server's registry. Built engines turn the prefix cache on unless the
+    dict says ``prefix_cache=False``, and warm their dispatch ladder
+    before the server starts."""
 
     def __init__(self, model, port: int = 0, *, max_batch: int = 64,
                  batch_timeout_ms: float = 5.0,
@@ -111,10 +133,12 @@ class InferenceServer:
                  breaker: Optional[CircuitBreaker] = None,
                  clock: Clock = SYSTEM_CLOCK,
                  registry: Optional[_metrics.MetricsRegistry] = None,
-                 tracer=None, decode=None, device="cuda"):
-        if decode is not None:
-            raise NotYetPorted("continuous-batched decode (decode=) is not "
-                               "yet ported to the PyTorch package")
+                 tracer=None, decode=None, device="cuda",
+                 warmup_background: bool = False):
+        if warmup_background:
+            raise NotYetPorted("warmup_background (the fleet's replica "
+                               "start-up) is not yet ported to the "
+                               "PyTorch package")
         self.device = _dtypes.resolve_device(device)
         self._model = model
         self.max_batch = int(max_batch)
@@ -134,6 +158,9 @@ class InferenceServer:
         self._chain_breaker_hook()
         self._model_generation = 0
         self._model_digest: Optional[str] = None
+        self.decode = None
+        if decode is not None:
+            self.decode = self._build_decode(decode, model, clock, tracer)
         self._queue: "queue.Queue[_Pending]" = queue.Queue(
             maxsize=int(max_queue))
         self._lock = threading.Lock()
@@ -186,6 +213,11 @@ class InferenceServer:
                 elif path == "/metrics":
                     _metrics.write_exposition(self, outer.registry)
                     outer._m_responses.inc(code="200")
+                elif path.startswith("/debug/"):
+                    self._json({"error": f"{path}: request timelines and "
+                                         "the /debug endpoints are not yet "
+                                         "ported to the PyTorch package"},
+                               501)
                 else:
                     self._json({"error": "not found"}, 404)
 
@@ -196,6 +228,16 @@ class InferenceServer:
                     payload = json.loads(self.rfile.read(length).decode())
                 except Exception as e:
                     self._json({"error": f"bad request: {e}"}, 400)
+                    return
+                if url.path == "/generate":
+                    body, code, retry_after, tp = outer._generate(
+                        payload, trace_ctx=self.headers.get("traceparent"))
+                    headers = {}
+                    if retry_after is not None:
+                        headers["Retry-After"] = f"{retry_after:.0f}"
+                    if tp is not None:
+                        headers["traceparent"] = tp
+                    self._json(body, code, headers)
                     return
                 if url.path != "/predict":
                     self._json({"error": "not found"}, 404)
@@ -222,6 +264,24 @@ class InferenceServer:
         self._serve_thread = threading.Thread(
             target=self._httpd.serve_forever, daemon=True)
         self._serve_thread.start()
+
+    def _build_decode(self, decode, model, clock, tracer):
+        from .decode import DecodeScheduler, PagedDecodeEngine
+        if isinstance(decode, DecodeScheduler):
+            return decode
+        cfg = dict(decode)
+        sched_kw = {k: cfg.pop(k) for k in
+                    ("max_queue", "default_max_new_tokens",
+                     "request_timeout_s", "start_thread") if k in cfg}
+        # cross-request prefix caching is on by default for served
+        # engines (traffic repeats system prompts)
+        cfg.setdefault("prefix_cache", True)
+        engine = PagedDecodeEngine(model, registry=self.registry, **cfg)
+        # the ladder runs before the loop starts: server start pays the
+        # first-dispatch costs, not the first live requests
+        engine.warmup()
+        return DecodeScheduler(engine, clock=clock, registry=self.registry,
+                               tracer=tracer, **sched_kw)
 
     # ------------------------------------------------------------------
     # metrics
@@ -340,19 +400,106 @@ class InferenceServer:
 
     def _health(self) -> dict:
         reasons = self.readiness_reasons()
-        return {"ok": not self._draining and self.breaker.state != "open",
-                "live": self.live,
-                "ready": not reasons,
-                "ready_reasons": reasons,
-                "model": type(self._model).__name__,
-                "model_digest": self.model_digest,
-                "model_generation": self._model_generation,
-                "served": self.served,
-                "shed": self.shed,
-                "queue_depth": self._queue.qsize(),
-                "queue_capacity": self._queue.maxsize,
-                "breaker": self.breaker.state,
-                "draining": self._draining}
+        h = {"ok": not self._draining and self.breaker.state != "open",
+             "live": self.live,
+             "ready": not reasons,
+             "ready_reasons": reasons,
+             "model": type(self._model).__name__,
+             "model_digest": self.model_digest,
+             "model_generation": self._model_generation,
+             "served": self.served,
+             "shed": self.shed,
+             "queue_depth": self._queue.qsize(),
+             "queue_capacity": self._queue.maxsize,
+             "breaker": self.breaker.state,
+             "draining": self._draining}
+        if self.decode is not None:
+            h["decode"] = {"active": self.decode.active_count(),
+                           "queued": self.decode.queue_depth()}
+            eng = self.decode.engine
+            index = eng.arena.prefix_index
+            if index is not None:
+                hits = self.registry.get("kv_prefix_hits_total")
+                hit_pages = self.registry.get("kv_prefix_hit_pages_total")
+                h["decode"]["prefix_cache"] = {
+                    "hits_full": hits.value(result="full") if hits else 0.0,
+                    "hits_partial": (hits.value(result="partial")
+                                     if hits else 0.0),
+                    "misses": hits.value(result="miss") if hits else 0.0,
+                    "hit_pages": hit_pages.value() if hit_pages else 0.0,
+                    "cached_pages": index.cached_pages,
+                    "shared_pages": eng.arena.allocator.shared_pages,
+                    "kv_dtype": "fp",
+                }
+        return h
+
+    # ------------------------------------------------------------------
+    # generate
+    # ------------------------------------------------------------------
+
+    def _generate(self, payload: dict, trace_ctx: Optional[str] = None
+                  ) -> Tuple[dict, int, Optional[float], Optional[str]]:
+        """POST /generate → (body, http_code, retry_after_s,
+        traceparent_out). Blocks the handler thread until the scheduler
+        finishes the request (the loop runs it together with every other
+        in-flight sequence)."""
+        from .decode import SchedulerDraining, SchedulerSaturated
+        if self.decode is None:
+            return ({"error": "generative decode not enabled on this "
+                              "server (pass decode=)"}, 400, None, None)
+        if not isinstance(payload, dict) or "prompt_ids" not in payload:
+            return {"error": "missing prompt_ids"}, 400, None, None
+        try:
+            # coerced up front: a string would pass Deadline's float()
+            # and then break the wait arithmetic below
+            timeout_s = (None if payload.get("timeout_s") is None
+                         else float(payload["timeout_s"]))
+        except (TypeError, ValueError) as e:
+            return {"error": f"bad timeout_s: {e}"}, 400, None, None
+        try:
+            req = self.decode.submit(
+                payload["prompt_ids"], payload.get("max_new_tokens"),
+                temperature=float(payload.get("temperature", 0.0)),
+                eos_id=payload.get("eos_id"),
+                timeout_s=timeout_s,
+                seed=payload.get("seed"),
+                top_k=int(payload.get("top_k", 0)),
+                top_p=float(payload.get("top_p", 1.0)),
+                trace_ctx=trace_ctx)
+        except SchedulerDraining:
+            return {"error": "server is draining"}, 503, 1.0, None
+        except SchedulerSaturated as e:
+            return ({"error": "server overloaded (decode queue full)"},
+                    503, e.retry_after, None)
+        except (ValueError, TypeError, OverflowError) as e:
+            return {"error": f"bad request: {e}"}, 400, None, None
+        tp = _tracing.inject(req.span) if req.span is not None else None
+        budget = (timeout_s if timeout_s is not None
+                  else self.decode.request_timeout_s)
+        req.wait(timeout=budget + 5.0)
+        if req.finish_reason is None:      # scheduler wedged: honest 504
+            return {"error": "generation timeout"}, 504, None, tp
+        if req.finish_reason == "error":
+            # the request died with the ENGINE (pools rebuilt), not on its
+            # own terms: partial output and a retryable verdict
+            return ({"error": req.error or "decode failed",
+                     "retryable": True,
+                     "tokens": [int(t) for t in req.tokens],
+                     "n_generated": len(req.tokens)}, 500, None, tp)
+        if req.finish_reason == "shutdown":
+            return ({"error": "server shutting down",
+                     "retryable": True}, 503, None, tp)
+        if req.finish_reason == "deadline" and not req.tokens:
+            return {"error": "request deadline exceeded"}, 504, None, tp
+        body = {"tokens": [int(t) for t in req.tokens],
+                "finish_reason": req.finish_reason,
+                "n_generated": len(req.tokens)}
+        if req.t_first_token is not None:
+            body["ttft_ms"] = round(
+                1000.0 * (req.t_first_token - req.t_submit), 3)
+        if req.span is not None:
+            body["trace_id"] = req.span.trace_id
+        return body, 200, None, tp
 
     # ------------------------------------------------------------------
     # predict
@@ -523,20 +670,42 @@ class InferenceServer:
     # ------------------------------------------------------------------
 
     def set_model(self, model) -> None:
-        """Hot-swap the served model (atomic w.r.t. in-flight batches)."""
+        """Hot-swap the served model (atomic w.r.t. in-flight batches).
+
+        With generative decode the swap is fenced to a decode step
+        boundary and REFUSED (:class:`ModelSwapRefused`) while sequences
+        are in flight: their K/V pages hold the old model's activations.
+        Drain first."""
+        if self.decode is not None:
+            with self.decode.fence() as in_flight:
+                if in_flight:
+                    raise ModelSwapRefused(
+                        f"refusing model swap: {in_flight} generative "
+                        "sequence(s) in flight — drain() first")
+                self.decode.engine.swap_net(model)
+                with self._lock:
+                    self._model = model
+            self._model_digest = None
+            self._model_generation += 1
+            return
         with self._lock:
             self._model = model
         self._model_digest = None
         self._model_generation += 1
 
     def drain(self, timeout: float = 30.0) -> bool:
-        """Stop admitting new work (predicts answer 503) and wait until
-        everything already accepted has been answered. True if fully
+        """Stop admitting new work (predicts and generates answer 503) and
+        wait until everything already accepted has been answered —
+        including in-flight generative sequences, which keep decoding
+        until they finish or hit their own deadline. True if fully
         drained within ``timeout``; every drain counts into
         ``serving_drain_total{result}``, and a timeout also records a
-        ``serving_drain_timeout`` flight event."""
+        ``serving_drain_timeout`` flight event naming what was left."""
         self._draining = True
         deadline = time.perf_counter() + timeout
+        decode_ok = True
+        if self.decode is not None:
+            decode_ok = self.decode.drain(timeout=timeout)
         drained = False
         while time.perf_counter() < deadline:
             with self._pending_lock:
@@ -547,18 +716,32 @@ class InferenceServer:
         if not drained:
             with self._pending_lock:
                 drained = self._pending == 0
+        drained = drained and decode_ok
         self._m_drain.inc(result="ok" if drained else "timeout")
         if not drained:
             from ..util import flightrecorder as _flight
             _flight.record("serving_drain_timeout",
-                           pending_predicts=self._pending)
+                           pending_predicts=self._pending,
+                           in_flight=self._in_flight_decodes())
         return drained
+
+    def _in_flight_decodes(self) -> List[dict]:
+        """The generative requests still active (lane and progress), for
+        the ``serving_drain_timeout`` event."""
+        if self.decode is None:
+            return []
+        return [{"lane": seq.lane, "prompt_len": len(seq.req.prompt),
+                 "generated": len(seq.req.tokens),
+                 "max_new_tokens": seq.req.max_new_tokens}
+                for seq in list(self.decode._active.values())]
 
     def stop(self, drain: bool = True, timeout: float = 30.0) -> None:
         """Graceful shutdown: by default drains queued requests first so a
         planned restart drops nothing mid-flight."""
         if drain:
             self.drain(timeout)
+        if self.decode is not None:
+            self.decode.stop()
         self._stop.set()
         # answer anything still queued (drain=False or drain timeout)
         while True:

@@ -174,9 +174,15 @@ class TestInferenceServer:
             server.stop()
 
     def test_decode_is_not_yet_ported(self):
+        """Generative decode is ported (tests/test_torch_decode.py); its
+        speculative and int8-page options are not, and say so by name."""
         from deeplearning4j_tpu_torch.nn.conf.layers import NotYetPorted
-        with pytest.raises(NotYetPorted, match="decode"):
-            _server(_net(), decode={"max_lanes": 2})
+        net = _net()
+        cfg = {"max_batch": 2, "page_size": 4, "pages_per_seq": 2}
+        with pytest.raises(NotYetPorted, match="speculative decoding"):
+            _server(net, decode=dict(cfg, draft_net=net))
+        with pytest.raises(NotYetPorted, match="int8 KV pages"):
+            _server(net, decode=dict(cfg, kv_dtype="int8"))
 
 
 class _BlockingModel:

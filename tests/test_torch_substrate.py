@@ -61,7 +61,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     n, names, bad = res.stdout.strip().split("\n")
     assert int(n) >= 20                       # the server and ops included
     for mod in ("losses", "optimize.updaters", "ops.flash_attention",
-                "nn.graph_runtime", "util.serialization"):
+                "nn.graph_runtime", "util.serialization", "util.netutil",
+                "ops.sampling", "ops.paged_attention", "serving.kv_cache",
+                "serving.decode"):
         assert f"'deeplearning4j_tpu_torch.{mod}'" in names, mod
     assert bad.strip() == "[]", bad
 
