@@ -45,7 +45,25 @@ Phases, in order; any failure propagates and the script exits non-zero:
    forward with the plain backward (which a backward missing one key tile
    must fail); two timed rounds of fit_repeated(k=8) (losses finite and
    falling), the same for the dense attention route; one step profiled;
-8. a JSON line of the kernels (launches on the training path, error,
+8. decode main path on a flagship model with a 2048-token window
+   (mixed_bf16, random weights from the seed), served by the paged
+   engine at 8 lanes: the port's generate as the oracle; the host-ticked
+   step and fused blocks of 16, each with every dispatch a captured CUDA
+   graph (two runs) and with the engine's private eager switch (one
+   run), every replay under CUDA's sync debug mode "error": engine
+   probabilities after prefill against rnn_time_step, greedy tokens
+   against the oracle up to near ties, sampled requests reproducible,
+   the eager engine's tokens equal to the captured one's, the prefix hit
+   against a cold engine, a swapped page caught; every key of both
+   ladders replayed against an eager call of its step, bitwise; one tick
+   of each shape and mode profiled (device busy share, kernels and host
+   launch calls per step); int8 pages: the reference's log-prob gate
+   over a full window, the int8 engine's greedy tokens against the
+   oracle, its replay against eager; speculative decoding with a
+   draft_transformer_lm draft and with the target as its own draft
+   (acceptance, greedy tokens, reproducibility, replay against eager);
+   two concurrent POST /generate requests;
+9. a JSON line of the kernels (launches on the training path, error,
    times, bound), the card line, and last {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.
@@ -77,6 +95,8 @@ from deeplearning4j_tpu_torch.models import transformer as tlm  # noqa: E402
 from deeplearning4j_tpu_torch.serving import InferenceServer  # noqa: E402
 from deeplearning4j_tpu_torch.serving.decode import (  # noqa: E402
     DecodeScheduler, PagedDecodeEngine)
+from deeplearning4j_tpu_torch.serving.kv_cache import PagedKVArena  # noqa: E402
+from deeplearning4j_tpu_torch.util import capture  # noqa: E402
 from deeplearning4j_tpu_torch.util.metrics import MetricsRegistry  # noqa: E402
 from pathlib import Path  # noqa: E402
 
@@ -156,7 +176,11 @@ TRAIN_ROUNDS = 2
 # cache. Run with the host-ticked step and with fused blocks of 16.
 DECODE = {"max_cache_t": 2048, "lanes": 8, "page_size": 16,
           "pages_per_seq": 128, "prefill_chunk": 256, "new_tokens": 128,
-          "block_lens": (1, 16), "prefix": 512}
+          "block_lens": (1, 16), "prefix": 512, "draft_k": 4,
+          # prompt lengths (the two prefix requests: past the shared 512)
+          "prompts": {"g64": 64, "g1536": 1536, "prefix_seed": 188,
+                      "prefix_hit": 300, "g1000_eos": 1000, "g256": 256,
+                      "s400": 400, "s1100": 1100}}
 DECODE_SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
 # The engine's next-token probabilities after prefill against the port's
 # rnn_time_step on the same prompt (dense streaming cache), both on the
@@ -171,6 +195,13 @@ DECODE_SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
 # comparisons: a token may differ from the oracle's only where the
 # oracle's top-2 margin is below it (exact bf16 ties included).
 DECODE_PROB_TOL = 1e-6
+# The target as its own draft: the draft's step and the verify's chunk
+# compute the same distributions up to bf16 noise, so a draft is rejected
+# only where the target's top-2 margin is within that noise (a near tie);
+# the oracle streams of this traffic hold few such steps (the phase prints
+# their count). 5% of the drafts is far above that and far below what a
+# real disagreement of the two would reject.
+SELF_DRAFT_ACCEPT = 0.95
 FLAGSHIP = {"V": 32768, "L": 12, "D": 768, "H": 12, "F": 3072, "T": 2048,
             "B": 8}
 
@@ -623,11 +654,17 @@ def forward_seconds(net, ids, reps=5):
     return (time.perf_counter() - t0) / reps
 
 
-def profile(fn, what, top=10):
+# host calls that put work on the device, counted beside the kernels
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def profile(fn, what, top=10, counts=None):
     """Device time of one call of ``fn`` by kernel (torch.profiler),
     largest first: the top ``top`` and every flash kernel. Returns the
     device milliseconds (None if the profiler recorded no device
-    kernels)."""
+    kernels); ``counts``, a dict, receives the number of kernels run
+    ("kernels") and of host calls that launched work ("host")."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
@@ -640,8 +677,14 @@ def profile(fn, what, top=10):
         print("profile: the profiler recorded no device kernels")
         return None
     total = sum(e.self_device_time_total for e in events)
+    host = {e.key: e.count for e in prof.key_averages()
+            if e.key in HOST_LAUNCHES}
+    if counts is not None:
+        counts["kernels"] = sum(e.count for e in events)
+        counts["host"] = sum(host.values())
     print(f"profile: {what}, {total / 1e3:.3f} ms of device time in "
-          f"{sum(e.count for e in events)} kernel launches")
+          f"{sum(e.count for e in events)} kernel launches; host launch "
+          f"calls {host}")
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)
     for e in ranked[:top] + [e for e in ranked[top:] if "flash_" in e.key]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
@@ -1099,44 +1142,51 @@ def decode_traffic(V):
     hit (submitted late)."""
     rng = np.random.default_rng(SEED + 6)
     shared = rng.integers(0, V, DECODE["prefix"]).astype(np.int32)
+    n = DECODE["prompts"]
 
-    def ids(n):
-        return rng.integers(0, V, n).astype(np.int32)
+    def ids(k):
+        return rng.integers(0, V, n[k]).astype(np.int32)
 
     greedy = {"temperature": 0.0}
-    reqs = [dict(name="g64", prompt=ids(64), **greedy),
-            dict(name="g1536", prompt=ids(1536), **greedy),
-            dict(name="prefix_seed", prompt=np.concatenate([shared, ids(188)]),
+    reqs = [dict(name="g64", prompt=ids("g64"), **greedy),
+            dict(name="g1536", prompt=ids("g1536"), **greedy),
+            dict(name="prefix_seed",
+                 prompt=np.concatenate([shared, ids("prefix_seed")]),
                  **greedy),
-            dict(name="prefix_hit", prompt=np.concatenate([shared, ids(300)]),
+            dict(name="prefix_hit",
+                 prompt=np.concatenate([shared, ids("prefix_hit")]),
                  late=True, **greedy),
-            dict(name="g1000_eos", prompt=ids(1000), **greedy),
-            dict(name="g256", prompt=ids(256), **greedy),
-            dict(name="s400", prompt=ids(400), seed=1, **DECODE_SAMPLING),
-            dict(name="s1100", prompt=ids(1100), seed=2, **DECODE_SAMPLING)]
+            dict(name="g1000_eos", prompt=ids("g1000_eos"), **greedy),
+            dict(name="g256", prompt=ids("g256"), **greedy),
+            dict(name="s400", prompt=ids("s400"), seed=1, **DECODE_SAMPLING),
+            dict(name="s1100", prompt=ids("s1100"), seed=2,
+                 **DECODE_SAMPLING)]
     return reqs
 
 
 def oracle_decode(net, prompt, n):
     """The port's ``generate`` (greedy) step by step on the card, keeping
     what it does not return: the first distribution (after the prompt) and
-    the top-2 margin of every step's distribution."""
+    the top-2 margin of every step's distribution, in probability and in
+    log-probability."""
     net.rnn_clear_previous_state()
     with torch.inference_mode():
         row = net.rnn_time_step(prompt[None, :, None])[0, -1].float()
         first = row.cpu().numpy()
-        toks, margins = [], []
+        toks, margins, log_margins = [], [], []
         for i in range(n):
             top = torch.topk(row, 2).values
-            pair = torch.stack([torch.argmax(row).float(),
-                                top[0] - top[1]]).cpu().numpy()
-            toks.append(int(pair[0]))
-            margins.append(float(pair[1]))
+            trio = torch.stack([torch.argmax(row).float(), top[0] - top[1],
+                                torch.log(top[0]) - torch.log(top[1])]
+                               ).cpu().numpy()
+            toks.append(int(trio[0]))
+            margins.append(float(trio[1]))
+            log_margins.append(float(trio[2]))
             if i == n - 1:
                 break
             row = net.rnn_time_step(np.full((1, 1, 1), toks[-1], np.int32)
                                     )[0, -1].float()
-    return first, toks, margins
+    return first, toks, margins, log_margins
 
 
 def near_tie_compare(got, want, margins, bound):
@@ -1212,27 +1262,239 @@ def first_token_probs(sched):
 
 
 @contextlib.contextmanager
-def no_sync_in_fused_loop():
-    """Within the block, every fused decode loop runs with CUDA's sync
-    debug mode at "error": a host sync inside the loop raises."""
-    loop = tlm.fused_decode_loop
+def no_sync_in_replay():
+    """Within the block, every run of a decode engine's entry — a graph
+    replay, or the step an eager engine calls in its place — runs with
+    CUDA's sync debug mode at "error": a host sync inside raises."""
+    run = capture.GraphEntry.run
 
-    def checked(*a, **kw):
+    def checked(self):
         torch.cuda.set_sync_debug_mode("error")
         try:
-            return loop(*a, **kw)
+            return run(self)
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
-    tlm.fused_decode_loop = checked
+    capture.GraphEntry.run = checked
     try:
         yield
     finally:
-        tlm.fused_decode_loop = loop
+        capture.GraphEntry.run = run
 
 
 def percentile(xs, q):
     return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def decode_engine(net, block_len=1, eager=False, **kw):
+    """A decode engine over ``net`` with the phase's shape, its ladder
+    built (captured, or eager through the private switch); its scheduler
+    and registry, and what the warmup took."""
+    reg = MetricsRegistry()
+    eng = PagedDecodeEngine(
+        net, max_batch=DECODE["lanes"], page_size=DECODE["page_size"],
+        pages_per_seq=DECODE["pages_per_seq"],
+        prefill_chunk=DECODE["prefill_chunk"], registry=reg,
+        block_len=block_len, prefix_cache=True, **kw)
+    eng._graphs._eager_cuda = eager
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    info = {"warm_s": time.perf_counter() - t0}
+    return eng, DecodeScheduler(eng, registry=reg, start_thread=False), \
+        reg, info
+
+
+def builds(reg):
+    """Entries built per key (``jit_retraces_total``)."""
+    m = reg.get("jit_retraces_total")
+    return {} if m is None else {s["labels"]["fn"]: s["value"]
+                                 for s in m.snapshot()["series"]}
+
+
+def capture_report(what, eng, reg, info):
+    b = builds(reg)
+    hist = reg.get("xla_compile_seconds")
+    walls = {k: hist.sum(fn=k) for k in b}
+    pool = eng._graphs.pool_bytes()
+    print(f"decode {what}: warmup {info['warm_s']:.3f} s, {len(b)} keys, "
+          f"{sum(b.values()):.0f} builds (at most {max(b.values()):.0f} per "
+          f"key), build wall {sum(walls.values()):.3f} s; graph pool "
+          f"{pool} bytes; per key (s): "
+          + ", ".join(f"{k} {w:.3f}" for k, w in sorted(walls.items())))
+
+
+@contextlib.contextmanager
+def idle_block_steps(eng):
+    """Within the block, the engine's fused blocks are tallied: their steps,
+    and the steps each ran after every lane had finished — where the
+    reference's ``while_loop`` exits and the captured block runs on (the
+    largest emitted count of a block is the step its last lane finished
+    at)."""
+    tally = {"blocks": 0, "steps": 0, "idle": 0}
+    run = eng.run_fused
+
+    def counted(*a, **kw):
+        toks, valid, n_emitted = run(*a, **kw)
+        tally["blocks"] += 1
+        tally["steps"] += valid.shape[1]
+        tally["idle"] += valid.shape[1] - int(n_emitted.max())
+        return toks, valid, n_emitted
+
+    eng.run_fused = counted
+    try:
+        yield tally
+    finally:
+        del eng.run_fused
+
+
+def run_traffic(sched, reg, traffic, reps):
+    """``reps`` runs of the traffic (prefix index flushed before each),
+    every entry run under the sync check. [(requests, wall, syncs,
+    first-token probabilities)]."""
+    runs = []
+    for _ in range(reps):
+        sched.engine.arena.prefix_index.flush()
+        syncs0 = reg.get("decode_host_syncs_total").value()
+        with first_token_probs(sched) as firsts, no_sync_in_replay():
+            reqs, wall = decode_schedule(sched, traffic)
+        runs.append((reqs, wall,
+                     reg.get("decode_host_syncs_total").value() - syncs0,
+                     firsts))
+    return runs
+
+
+def readings(reqs, wall, syncs):
+    generated = sum(len(q.tokens) for q in reqs.values())
+    ttft = [q.t_first_token - q.t_submit for q in reqs.values()]
+    tpot = [(q.t_done - q.t_first_token) / (len(q.tokens) - 1)
+            for q in reqs.values() if len(q.tokens) > 1]
+    return {"tokens": generated, "wall_s": wall,
+            "tokens_per_s": generated / wall,
+            "ttft_p50_ms": percentile(ttft, 50) * 1e3,
+            "ttft_p99_ms": percentile(ttft, 99) * 1e3,
+            "tpot_p50_ms": percentile(tpot, 50) * 1e3,
+            "syncs_per_token": syncs / generated}
+
+
+def fmt_readings(r):
+    return (f"{r['tokens']} tokens in {r['wall_s']:.4f} s, "
+            f"{r['tokens_per_s']:.1f} tokens/s; TTFT p50 "
+            f"{r['ttft_p50_ms']:.2f} ms p99 {r['ttft_p99_ms']:.2f} ms; time "
+            f"per output token p50 {r['tpot_p50_ms']:.3f} ms; host syncs "
+            f"per generated token {r['syncs_per_token']:.4f}")
+
+
+def greedy_gate(runs, oracle, bound=DECODE_PROB_TOL):
+    """Greedy requests of every run against the oracle up to near ties:
+    (requests matching in full, {name: (step, margin)})."""
+    matches, diverged = 0, {}
+    for name, (want, margins) in oracle.items():
+        for rs in runs:
+            d = near_tie_compare(rs[name].tokens, want, margins, bound)
+            if d is not None:
+                diverged[name] = d
+        matches += name not in diverged
+    return matches, diverged
+
+
+def fmt_diverged(diverged):
+    return "".join(f"; {n} diverges at step {j} (top-2 margin {m:.4g})"
+                   for n, (j, m) in diverged.items())
+
+
+def pool_tensors(eng):
+    out = []
+    for arena in (eng.arena, eng.draft_arena):
+        if arena is not None:
+            for p in arena.k_pools + arena.v_pools:
+                out.extend(p if isinstance(p, tuple) else (p,))
+    return out
+
+
+def replay_vs_eager(eng):
+    """Every entry of the engine's ladder, on the inputs it last ran (a
+    live dispatch's, or the warmup's placeholders), run twice from the
+    same pools: the graph replay, then a direct eager call of the same
+    step function. Outputs (tokens, validity, counts, probability rows)
+    and the written pools must be bitwise equal; the trash page, which
+    takes dropped writes in any order, is left out. The pools are
+    restored afterwards. Returns {key: [what differs]}."""
+    tensors = pool_tensors(eng)
+    trash = eng.arena.num_pages + 1
+    before = [t.clone() for t in tensors]
+    diffs = {}
+    with torch.inference_mode():
+        for name, entry in sorted(eng._graphs.entries().items()):
+            if entry.graph is None:
+                raise AssertionError(f"{name} was not captured")
+            for t, b in zip(tensors, before):
+                t.copy_(b)
+            g_out = [o.clone() for o in entry.run()]
+            g_pools = [t[:trash].clone() for t in tensors]
+            for t, b in zip(tensors, before):
+                t.copy_(b)
+            out = entry.fn(**entry.inputs)
+            e_out = out if isinstance(out, tuple) else (out,)
+            bad = [f"output {i}" for i, (a, b) in enumerate(zip(g_out, e_out))
+                   if not torch.equal(a, b)]
+            bad += [f"pool tensor {i}" for i, (a, t) in
+                    enumerate(zip(g_pools, tensors))
+                    if not torch.equal(a, t[:trash])]
+            diffs[name] = bad
+            del g_pools
+        for t, b in zip(tensors, before):
+            t.copy_(b)
+    torch.cuda.synchronize()
+    return diffs
+
+
+def check_replay(what, eng):
+    t0 = time.perf_counter()
+    diffs = replay_vs_eager(eng)
+    bad = {k: v for k, v in diffs.items() if v}
+    print(f"decode replay vs eager, {what}: {len(diffs)} keys, "
+          + ("all bitwise equal" if not bad else f"DIFFER: {bad}")
+          + f" ({time.perf_counter() - t0:.3f} s)")
+    if bad:
+        raise AssertionError(f"replay differs from eager: {bad}")
+
+
+def int8_logp_gate(net):
+    """The reference's int8 gate at full width: one int8 paged forward
+    over a whole window against the dense float oracle (``rnn_time_step``
+    over the same ids); max |Δ log p| and the positions whose argmax
+    differs, with the oracle's top-2 log-prob margin there."""
+    dims = PagedDecodeEngine._layer_dims(net)
+    w, ps = DECODE["max_cache_t"], DECODE["page_size"]
+    arena = PagedKVArena(dims, num_pages=w // ps, page_size=ps,
+                         kv_dtype="int8", with_allocator=False, device=DEV)
+    ids = np.random.default_rng(SEED + 8).integers(
+        0, FLAGSHIP["V"], w).astype(np.int32)
+    net.rnn_clear_previous_state()
+    with torch.inference_mode():
+        oracle = net.rnn_time_step(ids[None, :, None])[0].float()
+        probs, _, _ = tlm.paged_decode_forward(
+            net, net.params, arena.k_pools, arena.v_pools,
+            torch.from_numpy(ids[None]).to(DEV),
+            torch.arange(w // ps, dtype=torch.int32, device=DEV)[None],
+            torch.arange(w, dtype=torch.int32, device=DEV)[None],
+            torch.zeros(1, dtype=torch.int32, device=DEV))
+        lp = torch.log(torch.clamp_min(probs[0].float(), 1e-12))
+        lo = torch.log(torch.clamp_min(oracle, 1e-12))
+        err = float((lp - lo).abs().max())
+        top = torch.topk(lo, 2, dim=-1).values
+        margin = top[:, 0] - top[:, 1]
+        flips = torch.nonzero(lp.argmax(-1) != lo.argmax(-1)).flatten()
+        flip_margins = margin[flips].cpu().numpy()
+    del arena
+    return err, flips.cpu().numpy(), flip_margins
+
+
+def draft_counts(reg):
+    m = reg.get("decode_draft_tokens_total")
+    return m.value(result="accepted"), m.value(result="rejected")
 
 
 def engine_prefill_row(eng, lane, prompt):
@@ -1309,10 +1571,11 @@ def decode_profile(sched, traffic):
         torch.cuda.synchronize()
         window["ms"] = (time.perf_counter() - t1) * 1e3
 
+    counts = {}
     dev_ms = profile(tick, f"one decode tick, {lanes} lanes, block_len {n}",
-                     top=8)
+                     top=8, counts=counts)
     sched.stop()
-    return wall_ms, window["ms"], dev_ms
+    return wall_ms, window["ms"], dev_ms, counts
 
 
 def phase_decode():
@@ -1320,20 +1583,21 @@ def phase_decode():
     conf = transformer_lm(V, n_layers=L, d_model=D, n_heads=H, d_ff=F,
                           dtype="mixed_bf16", input_ids=True,
                           seed=SEED + 6, max_cache_t=DECODE["max_cache_t"])
-    net = ComputationGraph(conf).init()
+    net = ComputationGraph(conf, device=DEV).init()
     traffic = decode_traffic(V)
     n_new = DECODE["new_tokens"]
 
     # 1. the oracle: the port's generate on each prompt, alone
     t0 = time.perf_counter()
-    oracle_first, oracle = {}, {}
+    oracle_first, oracle, oracle_logm = {}, {}, {}
     for r in traffic:
         greedy = r["temperature"] <= 0
-        first, toks, margins = oracle_decode(net, r["prompt"],
-                                             n_new if greedy else 1)
+        first, toks, margins, logm = oracle_decode(
+            net, r["prompt"], n_new if greedy else 1)
         oracle_first[r["name"]] = first
         if greedy:
             oracle[r["name"]] = (toks, margins)
+            oracle_logm[r["name"]] = (toks, logm)
     eos_req = next(r for r in traffic if r["name"] == "g1000_eos")
     toks, margins = oracle[eos_req["name"]]
     # the eos: the first token after step 8 that the oracle had not
@@ -1342,95 +1606,97 @@ def phase_decode():
                n_new - 1) + 1
     eos_req["eos_id"] = toks[cut - 1]
     oracle[eos_req["name"]] = (toks[:cut], margins[:cut])
+    oracle_logm[eos_req["name"]] = (toks[:cut],
+                                    oracle_logm[eos_req["name"]][1][:cut])
     check = tlm.generate(net, traffic[0]["prompt"], n_new).tolist()
     if check != oracle[traffic[0]["name"]][0]:
         raise AssertionError("generate() differs from its step-by-step "
                              "replay on the same net")
+    near_ties = sum(int(np.sum(np.asarray(m) < DECODE_PROB_TOL))
+                    for _, m in oracle.values())
+    # the ticked step samples its sampled lanes on the host, over the vocab
+    row = np.asarray(oracle_first["s400"], np.float64)
+    rng = np.random.default_rng(0)
+    t1 = time.perf_counter()
+    for _ in range(20):
+        tlm.sample_token(row, DECODE_SAMPLING["temperature"], rng,
+                         top_k=DECODE_SAMPLING["top_k"],
+                         top_p=DECODE_SAMPLING["top_p"])
+    host_sample_ms = (time.perf_counter() - t1) / 20 * 1e3
     print(f"decode oracle: generate() over {len(oracle)} greedy prompts of "
           f"{[len(r['prompt']) for r in traffic]} tokens, "
           f"{time.perf_counter() - t0:.3f} s; eos request stops after "
           f"{cut} tokens; smallest top-2 margin "
-          f"{min(min(m) for _, m in oracle.values()):.4g}")
+          f"{min(min(m) for _, m in oracle.values()):.4g}; {near_ties} "
+          f"steps below {DECODE_PROB_TOL}; the host sampler takes "
+          f"{host_sample_ms:.3f} ms per sampled lane and step")
 
+    # 2. each step shape, captured (two runs) and eager (one run)
     results = {}
     for block_len in DECODE["block_lens"]:
-        reg = MetricsRegistry()
-        eng = PagedDecodeEngine(
-            net, max_batch=DECODE["lanes"], page_size=DECODE["page_size"],
-            pages_per_seq=DECODE["pages_per_seq"],
-            prefill_chunk=DECODE["prefill_chunk"], registry=reg,
-            block_len=block_len, prefix_cache=True)
-        t0 = time.perf_counter()
-        eng.warmup()
-        warm_s = time.perf_counter() - t0
-        sched = DecodeScheduler(eng, registry=reg, start_thread=False)
-        keys0 = set(eng.dispatch_keys)
-        runs = []
-        for rep in range(2):
-            eng.arena.prefix_index.flush()
-            syncs0 = reg.get("decode_host_syncs_total").value()
-            with first_token_probs(sched) as firsts, no_sync_in_fused_loop():
-                reqs, wall = decode_schedule(sched, traffic)
-            syncs = reg.get("decode_host_syncs_total").value() - syncs0
-            runs.append((reqs, wall, syncs, firsts))
-        if set(eng.dispatch_keys) != keys0:
-            raise AssertionError(f"dispatch shapes outside the warmed "
-                                 f"ladder: {set(eng.dispatch_keys) - keys0}")
-        reqs, wall, syncs, firsts = runs[0]
-        # probabilities after prefill, every lane, both runs
+        res = {}
+        for eager in (False, True):
+            eng, sched, reg, info = decode_engine(net, block_len,
+                                                  eager=eager)
+            mode = "eager" if eager else "graphs"
+            capture_report(f"block_len={block_len} {mode}", eng, reg, info)
+            built = builds(reg)
+            with idle_block_steps(eng) as idle:
+                runs = run_traffic(sched, reg, traffic, 1 if eager else 2)
+            if builds(reg) != built:
+                raise AssertionError(f"builds after warmup: "
+                                     f"{set(builds(reg)) - set(built)}")
+            read = readings(*runs[0][:3])
+            blocks = ("" if not idle["blocks"] else
+                      f"; over the runs {idle['blocks']} fused blocks of "
+                      f"{idle['steps']} steps, {idle['idle']} of them after "
+                      "every lane had finished")
+            print(f"decode block_len={block_len} {mode}: run walls "
+                  f"{[round(w, 4) for _, w, _, _ in runs]} s; "
+                  f"{fmt_readings(read)}; arena {eng.arena.nbytes()} bytes"
+                  + blocks)
+            res[mode] = dict(eng=eng, sched=sched, reg=reg, runs=runs,
+                             read=read)
+        g = res["graphs"]
+        runs = g["runs"]
+        reqs = runs[0][0]
         prob_err = {n: max(float(np.abs(fs[id(rs[n])]
                                         - oracle_first[n]).max())
                            for rs, _, _, fs in runs)
                     for n in (r["name"] for r in traffic)}
-        # greedy tokens against the oracle
-        matches, diverged = 0, {}
-        for name, (want, margins) in oracle.items():
-            for rs, _, _, _ in runs:
-                d = near_tie_compare(rs[name].tokens, want, margins,
-                                     DECODE_PROB_TOL)
-                if d is not None:
-                    diverged[name] = d
-            matches += name not in diverged
+        matches, diverged = greedy_gate([rs for rs, _, _, _ in runs],
+                                        oracle)
         sampled = [r["name"] for r in traffic if r["temperature"] > 0]
         same = {n: runs[0][0][n].tokens == runs[1][0][n].tokens
                 for n in reqs}
+        eager_same = all(res["eager"]["runs"][0][0][n].tokens
+                         == reqs[n].tokens for n in reqs)
         hit = reqs["prefix_hit"]
-        generated = sum(len(q.tokens) for q in reqs.values())
-        ttft = [q.t_first_token - q.t_submit for q in reqs.values()]
-        tpot = [(q.t_done - q.t_first_token) / (len(q.tokens) - 1)
-                for q in reqs.values() if len(q.tokens) > 1]
-        print(f"decode block_len={block_len}: warmup {warm_s:.3f} s "
-              f"({len(keys0)} dispatch shapes); run walls "
-              f"{[round(w, 4) for _, w, _, _ in runs]} s; {generated} "
-              f"tokens, {generated / wall:.1f} tokens/s; TTFT p50 "
-              f"{percentile(ttft, 50) * 1e3:.2f} ms p99 "
-              f"{percentile(ttft, 99) * 1e3:.2f} ms; time per output token "
-              f"p50 {percentile(tpot, 50) * 1e3:.3f} ms; host syncs per "
-              f"generated token {syncs / generated:.4f} ({syncs:.0f} syncs); "
-              f"prefix hit covered {hit.prefix_covered_tokens} tokens; "
-              f"arena {eng.arena.nbytes()} bytes")
         print(f"decode block_len={block_len}: max|dp| after prefill vs "
               "rnn_time_step " + ", ".join(f"{n} {e:.4g}"
                                            for n, e in prob_err.items())
               + f" (bound {DECODE_PROB_TOL}); greedy requests matching "
               f"the oracle in full: {matches} of {len(oracle)}"
-              + "".join(f"; {n} diverges at step {j} (top-2 margin "
-                        f"{m:.4g})" for n, (j, m) in diverged.items())
-              + f"; identical tokens in both runs: {same}")
+              + fmt_diverged(diverged)
+              + f"; identical tokens in both runs: {same}; the eager "
+              f"engine's tokens {'equal' if eager_same else 'DIFFER'}; "
+              f"prefix hit covered {hit.prefix_covered_tokens} tokens")
         if not max(prob_err.values()) <= DECODE_PROB_TOL:
             raise AssertionError("engine probabilities after prefill differ "
                                  "from rnn_time_step")
         if not all(same[n] for n in sampled):
             raise AssertionError("sampled requests are not reproducible")
+        if not eager_same:
+            raise AssertionError("the captured and the eager engine serve "
+                                 "different tokens")
         if hit.prefix_covered_tokens != DECODE["prefix"]:
             raise AssertionError(f"the prefix request covered "
                                  f"{hit.prefix_covered_tokens} tokens")
-        results[block_len] = dict(eng=eng, sched=sched, reqs=reqs,
-                                  diverged=diverged, wall=wall,
-                                  generated=generated)
+        res.update(reqs=reqs, diverged=diverged)
+        results[block_len] = res
 
     # the prefix hit against the same request on a cold engine
-    eng, sched = results[1]["eng"], results[1]["sched"]
+    eng, sched = results[1]["graphs"]["eng"], results[1]["graphs"]["sched"]
     eng.arena.prefix_index.flush()
     cold, _ = decode_schedule(sched, [dict(r, late=False) for r in traffic
                                       if r["name"] == "prefix_hit"])
@@ -1463,18 +1729,89 @@ def phase_decode():
         raise AssertionError("the probability gate does not see a swapped "
                              "page")
 
-    # one tick of each step shape, timed and profiled at 8 lanes
+    # every key of both ladders: replay against eager, bitwise
     for bl, res in results.items():
-        res["eng"].arena.prefix_index.flush()
-        wall_ms, window_ms, dev_ms = decode_profile(res["sched"], traffic)
-        busy = "" if dev_ms is None else (
-            f"; the profiled tick: {window_ms:.3f} ms wall, device busy "
-            f"{dev_ms:.3f} ms ({100 * dev_ms / window_ms:.1f}% of that "
-            "window, the profiler's host cost included)")
-        print(f"decode tick, block_len={bl}: {wall_ms:.3f} ms wall for "
-              f"{bl} token(s) per lane{busy}")
+        check_replay(f"f32 pools, block_len={bl}", res["graphs"]["eng"])
 
-    # POST /generate: two greedy requests, concurrently
+    # one tick of each step shape and mode, timed and profiled at 8 lanes
+    for bl, res in results.items():
+        for mode in ("graphs", "eager"):
+            r = res[mode]
+            r["eng"].arena.prefix_index.flush()
+            wall_ms, window_ms, dev_ms, launches = decode_profile(
+                r["sched"], traffic)
+            busy = "" if dev_ms is None else (
+                f"; the profiled tick: {window_ms:.3f} ms wall, device busy "
+                f"{dev_ms:.3f} ms ({100 * dev_ms / window_ms:.1f}% of that "
+                "window, the profiler's host cost included), "
+                f"{launches['kernels'] / bl:.1f} kernels and "
+                f"{launches['host'] / bl:.1f} host launch calls per step")
+            print(f"decode tick, block_len={bl} {mode}: {wall_ms:.3f} ms "
+                  f"wall for {bl} token(s) per lane{busy}")
+    del results, eng, sched, res, r
+    torch.cuda.empty_cache()
+
+    # 3. int8 pages at the flagship widths
+    err, flips, flip_margins = int8_logp_gate(net)
+    print(f"decode int8 gate: max|dlog p| over a {DECODE['max_cache_t']}-"
+          f"token window vs rnn_time_step {err:.4g} (gate 0.25); argmax "
+          f"differs at {len(flips)} positions, at oracle top-2 log margins "
+          f"up to {float(np.max(flip_margins, initial=0.0)):.4g}")
+    if not err < 0.25:
+        raise AssertionError(f"int8 log-prob error {err} is not below 0.25")
+    if len(flips) and not np.all(flip_margins < 2 * err):
+        raise AssertionError("an int8 argmax flip at a margin above twice "
+                             "the measured error")
+    eng, sched, reg, info = decode_engine(net, 16, kv_dtype="int8")
+    capture_report("int8 block_len=16 graphs", eng, reg, info)
+    runs = run_traffic(sched, reg, traffic, 1)
+    read = readings(*runs[0][:3])
+    matches, diverged = greedy_gate([runs[0][0]], oracle_logm, 2 * err)
+    print(f"decode int8 block_len=16: {fmt_readings(read)}; greedy "
+          f"requests equal to the oracle in full: {matches} of "
+          f"{len(oracle_logm)}" + fmt_diverged(diverged).replace(
+              "top-2 margin", "top-2 log margin")
+          + f" (bound 2·max|dlog p| = {2 * err:.4g}); arena "
+          f"{eng.arena.nbytes()} bytes")
+    check_replay("int8 pools, block_len=16", eng)
+    del eng, sched
+    torch.cuda.empty_cache()
+
+    # 4. speculative decoding: a draft from a seed, and the target itself
+    draft = ComputationGraph(tlm.draft_transformer_lm(
+        V, seed=SEED + 7, max_cache_t=DECODE["max_cache_t"]),
+        device=DEV).init()
+    for what, dnet, reps in (("draft_transformer_lm", draft, 2),
+                             ("the target as its own draft", net, 1)):
+        eng, sched, reg, info = decode_engine(net, 1, draft_net=dnet,
+                                              draft_k=DECODE["draft_k"])
+        capture_report(f"speculative ({what})", eng, reg, info)
+        runs = run_traffic(sched, reg, traffic, reps)
+        read = readings(*runs[0][:3])
+        acc, rej = draft_counts(reg)
+        matches, diverged = greedy_gate([rs for rs, _, _, _ in runs],
+                                        oracle)
+        line = (f"decode speculative, {what}, draft_k "
+                f"{DECODE['draft_k']}: {fmt_readings(read)}; drafts "
+                f"accepted {acc:.0f}, rejected {rej:.0f} (acceptance "
+                f"{acc / max(acc + rej, 1):.4f}); greedy requests equal to "
+                f"target-only decode in full: {matches} of {len(oracle)}"
+                + fmt_diverged(diverged))
+        if reps > 1:
+            same = all(runs[0][0][n].tokens == runs[1][0][n].tokens
+                       for n in runs[0][0])
+            line += f"; identical tokens in both runs: {same}"
+            if not same:
+                raise AssertionError("speculative runs differ")
+        print(line)
+        if dnet is net and acc / max(acc + rej, 1) < SELF_DRAFT_ACCEPT:
+            raise AssertionError("the target as its own draft accepted "
+                                 f"{acc:.0f} of {acc + rej:.0f} drafts")
+        check_replay(f"speculative ({what})", eng)
+        del eng, sched
+        torch.cuda.empty_cache()
+
+    # 5. POST /generate on the captured engine: two greedy requests at once
     server = InferenceServer(net, decode={
         "max_batch": DECODE["lanes"], "page_size": DECODE["page_size"],
         "pages_per_seq": DECODE["pages_per_seq"],
@@ -1511,6 +1848,9 @@ def phase_decode():
                             f"diverges at step {d[0]} (margin {d[1]:.4g})"))
         health = json.loads(urllib.request.urlopen(base + "/healthz",
                                                    timeout=30).read())
+        if builds(server.registry) and max(
+                builds(server.registry).values()) != 1:
+            raise AssertionError("the server's engine built a key twice")
         print("decode POST /generate: " + "; ".join(notes)
               + f"; healthz decode {health['decode']}")
     finally:

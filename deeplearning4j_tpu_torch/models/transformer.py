@@ -13,9 +13,9 @@ single-sequence full-cache decode through ``rnn_time_step``, also the
 parity oracle of the serving engine), the host sampler ``sample_token``,
 ``paged_decode_forward`` (one forward over the paged K/V pools) and
 ``fused_decode_loop`` (N decode steps with on-device sampling and no host
-sync). The MoE variant (``moe_experts > 0``) and speculative decoding
-(``draft_transformer_lm``, ``draft_decode_loop``, ``spec_verify``) are
-not yet ported and raise ``NotYetPorted``.
+sync), and speculative decoding (``draft_transformer_lm``,
+``draft_decode_loop``, ``spec_verify``). The MoE variant (``moe_experts >
+0``) is not yet ported and raises ``NotYetPorted``.
 """
 
 from __future__ import annotations
@@ -318,19 +318,142 @@ def fused_decode_loop(net, params, k_pools, v_pools, last_tokens,
     return toks, valid, n_emitted, done, k_pools, v_pools
 
 
-def draft_transformer_lm(vocab_size: int, **kw):
-    """The draft model family of speculative decoding: not yet ported."""
-    raise NotYetPorted("speculative decoding (draft_transformer_lm) is not "
-                       "yet ported to the PyTorch package")
+def draft_transformer_lm(vocab_size: int, *, d_model: int = 128,
+                         n_heads: int = 4, d_ff: int = 512,
+                         seed: int = 42, dtype: str = "float32",
+                         max_cache_t: Optional[int] = None):
+    """The draft model family of speculative decoding: a 2-layer ids-mode
+    :func:`transformer_lm` over the SAME vocabulary as the target it
+    drafts for (same input contract and softmax head, so its filtered
+    distributions compare directly in the accept/reject step). The
+    serving engine requires only a matching vocabulary and window."""
+    return transformer_lm(vocab_size, n_layers=2, d_model=d_model,
+                          n_heads=n_heads, d_ff=d_ff, seed=seed,
+                          dtype=dtype, input_ids=True,
+                          max_cache_t=max_cache_t)
 
 
-def draft_decode_loop(*args, **kw):
-    """The draft half of a speculative block: not yet ported."""
-    raise NotYetPorted("speculative decoding (draft_decode_loop) is not "
-                       "yet ported to the PyTorch package")
+def draft_decode_loop(net, params, k_pools, v_pools, last_tokens,
+                      page_tables, rel_pos, active, write_budget,
+                      temperature, top_k, top_p, uniforms, *,
+                      any_sampled: bool):
+    """The draft half of a speculative block: K+1 steps of the draft net
+    over ITS OWN pools through the SHARED page tables (``uniforms [S,
+    K+1]``). The steps feed ``[pending, d_1 .. d_K]``, so the draft writes
+    K/V for all K+1 inputs, ``d_K`` included (its output is discarded):
+    target and draft frontiers advance in lockstep, and rejected tokens'
+    stale K/V sits beyond the causal mask until overwritten.
+
+    ``write_budget [S]`` caps each lane's writes at the tokens it may still
+    emit: slots past ``rel_pos + write_budget - 1`` are dropped, so a lane
+    near its max-tokens or the window edge never forces a page draw or an
+    eviction for tokens that cannot exist. ``any_sampled`` is the host's
+    knowledge of whether any lane samples (the reference's ``lax.cond``):
+    an all-greedy block skips the filter pipeline and returns zero
+    distributions, which the greedy verify never reads.
+
+    Returns ``(draft_tokens [S, K], draft_dists [S, K, V], k_pools,
+    v_pools)`` on the device; ``draft_dists`` are the FILTERED
+    distributions the draft sampled from."""
+    from ..ops import sampling as _sampling
+    k1 = uniforms.shape[1]                  # K + 1
+    rel = rel_pos.to(torch.int32)
+    cur = last_tokens.to(torch.int32)
+    toks, dists = [], []
+    for i in range(k1):
+        slot = torch.where(active & (i < write_budget), rel + i, -1)
+        probs, k_pools, v_pools = paged_decode_forward(
+            net, params, k_pools, v_pools, cur[:, None], page_tables,
+            slot[:, None], rel + i)
+        if i == k1 - 1:
+            break                           # d_K's K/V is all this step adds
+        row = probs[:, 0, :]
+        greedy = torch.argmax(row, dim=-1).to(torch.int32)
+        if any_sampled:
+            dist = _sampling.filtered_probs(row, temperature, top_k, top_p)
+            cur = torch.where(temperature > 0,
+                              _sampling.inverse_cdf(dist, uniforms[:, i]),
+                              greedy)
+        else:
+            dist = torch.zeros(row.shape, dtype=torch.float32,
+                               device=row.device)
+            cur = greedy
+        toks.append(cur)
+        dists.append(dist)
+    return (torch.stack(toks, dim=1), torch.stack(dists, dim=1), k_pools,
+            v_pools)
 
 
-def spec_verify(*args, **kw):
-    """The verify half of a speculative block: not yet ported."""
-    raise NotYetPorted("speculative decoding (spec_verify) is not yet "
-                       "ported to the PyTorch package")
+def spec_verify(net, params, k_pools, v_pools, last_tokens, page_tables,
+                rel_pos, active, write_budget, draft_tokens, draft_dists,
+                temperature, top_k, top_p, u_accept, u_fix, *,
+                any_sampled: bool):
+    """The verify half of a speculative block: ONE target pass over
+    ``[pending, d_1 .. d_K]`` (K+1 positions; the paged chunk forward
+    equals feeding them one at a time, which is what makes greedy
+    speculative output equal target-only decode), then accept/reject and
+    the bonus on the device (Leviathan et al.):
+
+    - greedy lanes (``temperature <= 0``): accept ``d_i`` iff it equals the
+      target argmax at its position; the first mismatch emits the target
+      argmax instead; a fully accepted block emits the position-K argmax
+      as the bonus token;
+    - sampled lanes: accept ``d_i`` with probability ``min(1, q(d_i) /
+      p(d_i))`` (filtered target over filtered draft) at ``u_accept[:,
+      i]``; the first rejection samples the residual ``max(q - p, 0)``
+      (``q`` when the residual has no mass) at ``u_fix``; the bonus is a
+      draw from the filtered position-K target distribution.
+
+    ``any_sampled`` is the host's greedy/sampled key axis (the reference's
+    ``lax.cond``); ``write_budget`` caps writes as in
+    :func:`draft_decode_loop`. Returns ``(emitted [S, K+1], valid [S,
+    K+1], accepts [S], k_pools, v_pools)``: ``valid[:, j] = j <=
+    accepts`` on active lanes; the host truncates at EOS/max-tokens."""
+    from ..ops import sampling as _sampling
+    s, k = draft_tokens.shape
+    k1 = k + 1
+    dev = draft_tokens.device
+    draft = draft_tokens.to(torch.int32)
+    rel = rel_pos.to(torch.int32)
+    ids = torch.cat([last_tokens.to(torch.int32)[:, None], draft], dim=1)
+    offs = torch.arange(k1, dtype=torch.int32, device=dev)[None, :]
+    wslots = torch.where(active[:, None] & (offs < write_budget[:, None]),
+                         rel[:, None] + offs, -1)
+    probs, k_pools, v_pools = paged_decode_forward(
+        net, params, k_pools, v_pools, ids, page_tables, wslots, rel)
+    v = probs.shape[-1]
+    t_hat = torch.argmax(probs, dim=-1).to(torch.int32)      # [S, K+1]
+    accept = draft == t_hat[:, :k]
+    fix = t_hat
+    if any_sampled:
+        def rep(a):                  # each lane's value K+1 times
+            return a[:, None].expand(s, k1).reshape(s * k1)
+        q = _sampling.filtered_probs(probs.reshape(s * k1, v),
+                                     rep(temperature), rep(top_k),
+                                     rep(top_p)).reshape(s, k1, v)
+        q_d = torch.take_along_dim(q[:, :k], draft[:, :, None].long(),
+                                   dim=-1)[..., 0]           # [S, K]
+        p_d = torch.take_along_dim(draft_dists, draft[:, :, None].long(),
+                                   dim=-1)[..., 0]
+        acc_sampled = u_accept < torch.clamp_max(
+            q_d / torch.clamp_min(p_d, 1e-30), 1.0)
+        resid = torch.clamp_min(q[:, :k] - draft_dists, 0.0)
+        has_mass = resid.sum(dim=-1, keepdim=True) > 0
+        resid = torch.where(has_mass, resid, q[:, :k])
+        fix_dist = torch.cat([resid, q[:, k:]], dim=1)       # [S, K+1, V]
+        fix_sampled = _sampling.inverse_cdf(
+            fix_dist.reshape(s * k1, v), u_fix.reshape(s * k1)
+        ).reshape(s, k1)
+        greedy = (temperature <= 0)[:, None]
+        accept = torch.where(greedy, accept, acc_sampled)
+        fix = torch.where(greedy, t_hat, fix_sampled)
+    accepts = torch.cumprod(accept.to(torch.int32), dim=1).sum(dim=1).to(
+        torch.int32)                                          # [S] 0..K
+    fix_at_a = torch.take_along_dim(fix, accepts[:, None].long(), dim=1)
+    d_pad = torch.cat([draft, torch.zeros((s, 1), dtype=torch.int32,
+                                          device=dev)], dim=1)
+    j = torch.arange(k1, dtype=torch.int32, device=dev)[None, :]
+    emitted = torch.where(j < accepts[:, None], d_pad,
+                          torch.where(j == accepts[:, None], fix_at_a, -1))
+    valid = (j <= accepts[:, None]) & active[:, None]
+    return emitted, valid, accepts, k_pools, v_pools

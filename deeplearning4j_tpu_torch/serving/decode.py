@@ -10,22 +10,25 @@ retiring sequence's pages are reusable by the next admission.
 
 Two layers:
 
-- :class:`PagedDecodeEngine` — owns the model, the arena, and the paged
-  step (``models.transformer.paged_decode_forward``). The scheduler packs
-  working lanes into power-of-two batch buckets × two chunk lengths (1
-  for decode, ``prefill_chunk`` for prefill). The reference compiles one
-  XLA program per such bucket and pins one trace each; PyTorch runs
-  eagerly, so the port keeps the same discipline as a record instead:
-  ``dispatch_keys`` counts the dispatches per shape key
-  (``paged_decode[S{lanes}xT{t}xP{pages}]``,
-  ``fused_decode[S{lanes}xN{block}xP{pages}]``), and the key set stays
-  the fixed ladder however requests arrive and retire.
+- :class:`PagedDecodeEngine` — owns the model, the arena, and one
+  captured program per dispatch shape (``util/capture.py``: a CUDA graph
+  on the card, the reference's one compiled XLA program per shape key).
+  The scheduler packs working lanes into power-of-two batch buckets, so
+  the key set is a fixed ladder — ``paged_decode[S{lanes}xT{t}xP{pages}]``
+  for prefill chunks and ticked steps, ``fused_decode[S{lanes}xN{block}
+  xP{pages}]``, ``draft_prefill[...]``, ``spec_draft[S{lanes}xK{k}x
+  P{pages}]`` and ``spec_verify[...]``, the last three with a
+  ``|sampled`` variant when a lane samples — and ``jit_retraces_total``
+  stays at 1 per key however requests arrive and retire. ``warmup()``
+  builds the whole ladder; a key it missed is built mid-serve and its
+  wall charged to TTFT's ``compile`` part. ``dispatch_keys`` counts the
+  dispatches per key.
 - :class:`DecodeScheduler` — the continuous-batching policy: bounded
   submit queue with shed-by-reason, page-reservation admission, chunked
   prefill interleaved with decode, per-sequence deadlines, decode-aware
   ``drain()``, and a ``fence()`` that holds the loop at a step boundary.
 
-Two decode-step shapes:
+Three decode-step shapes:
 
 - ``block_len=1`` (default): the host-ticked step — one dispatch and one
   host read per generated token, sampled on the host (``sample_token``).
@@ -34,6 +37,14 @@ Two decode-step shapes:
   sampling, EOS/budget self-retire) with no host sync inside; the
   scheduler ticks once per block and reads the block's results once. N is
   bucketed to a power of two, capped at 64.
+- ``draft_net=``: SPECULATIVE blocks — a small draft model (its pools in
+  a pools-only shadow arena indexed by the same page tables) drafts
+  ``draft_k`` tokens per lane, the target verifies them in one K+1
+  chunk, and accept/reject and the bonus happen on the device (Leviathan
+  et al.): 1..K+1 tokens per block for two dispatches and one host sync.
+
+``kv_dtype="int8"`` stores the pools as int8 codes with per-(page, head)
+f32 scales (``ops/paged_attention.py``), for every step shape.
 
 Greedy output is the same as the single-sequence full-cache oracle
 (``models.transformer.generate``) for every sequence that stays within
@@ -42,13 +53,12 @@ gather reassembles the window the oracle's streaming cache holds. Past
 the window the two legitimately differ: the arena evicts a page at a time
 while the oracle slides a token at a time.
 
-Not yet ported (they raise ``NotYetPorted``): speculative decoding
-(``draft_net=``) and int8 KV pages (``kv_dtype="int8"``).
-
 Observability: ``serving_shed_total{reason}``, ``decode_batch_occupancy``,
 ``kv_pages_in_use``, ``decode_retired_total{reason}``, TTFT and
 time-per-output-token histograms, ``decode_dispatches_total{kind}``,
-``decode_host_syncs_total`` and ``decode_host_tick_seconds{component}``.
+``decode_host_syncs_total``, ``decode_host_tick_seconds{component}``,
+``decode_draft_tokens_total{result}``, and the builds per key
+(``jit_retraces_total{fn}``, ``xla_compile_seconds{fn}``).
 
 Fault seam: ``"serving.decode_step"`` before every prefill/decode
 dispatch.
@@ -70,11 +80,12 @@ import torch
 from .. import dtypes as _dtypes
 from ..models import transformer as _transformer
 from ..nn.conf.attention import SelfAttentionLayer
-from ..nn.conf.layers import EmbeddingSequenceLayer, NotYetPorted
+from ..nn.conf.layers import EmbeddingSequenceLayer
 from ..util import faults as _faults
 from ..util import flightrecorder as _flight
 from ..util import metrics as _metrics
 from ..util import tracing as _tracing
+from ..util import capture as _capture
 from ..util.resilience import SYSTEM_CLOCK, Clock, Deadline
 from .kv_cache import PagedKVArena
 
@@ -116,9 +127,10 @@ class DecodeRequest:
 
     ``ttft_breakdown`` (stamped at the first token) splits the measured
     TTFT into parts that sum to it: ``queue_wait`` (submit → admission),
-    ``prefill`` (this request's own prefill dispatches) and ``dispatch``
-    (the rest: the shared ticks' other dispatches and host
-    bookkeeping)."""
+    ``prefill`` (this request's own prefill dispatches, builds excluded),
+    ``compile`` (the builds — graph captures on the card — of keys that
+    ``warmup()`` missed, paid by its prefill ticks) and ``dispatch`` (the
+    rest: the shared ticks' other dispatches and host bookkeeping)."""
 
     __slots__ = ("prompt", "max_new_tokens", "temperature", "eos_id",
                  "deadline", "rng", "tokens", "finish_reason", "error",
@@ -174,7 +186,7 @@ _PREFILL, _DECODE = "prefill", "decode"
 
 class _Sequence:
     __slots__ = ("req", "lane", "state", "cursor", "last_token",
-                 "prefill_s", "covered")
+                 "prefill_s", "compile_s", "covered")
 
     def __init__(self, req: DecodeRequest, lane: int):
         self.req = req
@@ -183,33 +195,32 @@ class _Sequence:
         self.cursor = 0              # prompt tokens already fed
         self.last_token = 0          # next token to feed in decode
         self.prefill_s = 0.0         # own prefill dispatch wall (TTFT)
+        self.compile_s = 0.0         # build wall its ticks paid
         self.covered = 0             # positions below this are cache hits
 
 
 class PagedDecodeEngine:
-    """Model + arena + the paged step.
+    """Model + arena + one captured program per dispatch shape.
 
     ``max_batch`` is the lane count; ``page_size × pages_per_seq`` is each
     lane's attention window (longer sequences slide by page eviction);
     ``num_pages`` defaults to ``max_batch × pages_per_seq`` (no
     overcommit). The engine runs on the net's device; the pools are
-    ``promote_types(compute, float32)`` as in the reference.
+    ``promote_types(compute, float32)`` as in the reference, or int8 codes
+    with per-(page, head) f32 scales (``kv_dtype="int8"``).
+    ``draft_net`` (with ``draft_k`` drafted tokens per block, in [1, 16])
+    turns the decode step into speculative blocks; it excludes
+    ``block_len > 1``.
     """
 
     def __init__(self, net, *, max_batch: int = 8, page_size: int = 16,
                  pages_per_seq: int = 8, num_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  registry: Optional[_metrics.MetricsRegistry] = None,
-                 block_len: int = 1, draft_net=None,
+                 block_len: int = 1, draft_net=None, draft_k: int = 4,
                  prefix_cache: bool = False,
                  kv_dtype: Optional[str] = None):
-        if draft_net is not None:
-            raise NotYetPorted("speculative decoding (draft_net=) is not "
-                               "yet ported to the PyTorch package")
-        if kv_dtype == "int8":
-            raise NotYetPorted("int8 KV pages (kv_dtype='int8') are not yet "
-                               "ported to the PyTorch package")
-        if kv_dtype is not None:
+        if kv_dtype not in (None, "int8"):
             raise ValueError(f"kv_dtype must be None or 'int8', "
                              f"got {kv_dtype!r}")
         self._validate_net(net)
@@ -240,16 +251,48 @@ class PagedDecodeEngine:
         self.registry = registry if registry is not None \
             else _metrics.MetricsRegistry()
         self._check_decode_config(net)
-        dims = {}
-        for name in _transformer.attention_vertices(net):
-            layer = net.conf.vertices[name].layer
-            dims[name] = (layer.n_heads, layer.n_in // layer.n_heads)
         self.arena = PagedKVArena(
-            dims, num_pages=int(num_pages), page_size=self.page_size,
+            self._layer_dims(net), num_pages=int(num_pages),
+            page_size=self.page_size,
             dtype=_dtypes.promote_to_f32(net.policy.compute_dtype),
             device=self.device, registry=self.registry,
-            prefix_cache=bool(prefix_cache))
+            kv_dtype=kv_dtype, prefix_cache=bool(prefix_cache))
         self.vocab = self._embed_vocab(net)
+        # speculative decoding: the draft's K/V lives in a pools-only
+        # shadow arena indexed by the same page tables
+        self.draft_net = draft_net
+        self.draft_k = int(draft_k)
+        self.draft_arena = None
+        if draft_net is not None:
+            if int(block_len) != 1:
+                raise ValueError(
+                    "block_len and draft_net are mutually exclusive — "
+                    "speculative blocks are draft_k-sized; configure one "
+                    "decode-step shape")
+            if not (1 <= self.draft_k <= 16):
+                raise ValueError(
+                    f"draft_k={self.draft_k} out of range [1, 16]")
+            if self.draft_k + 1 > self.window:
+                raise ValueError(
+                    f"draft_k={self.draft_k}+1 exceeds the window "
+                    f"({self.window})")
+            self._validate_net(draft_net)
+            self._check_decode_config(draft_net)
+            if self._embed_vocab(draft_net) != self.vocab:
+                raise ValueError(
+                    f"draft vocab {self._embed_vocab(draft_net)} != "
+                    f"target vocab {self.vocab} — accept/reject compares "
+                    "distributions over one vocabulary")
+            if draft_net.device != self.device:
+                raise ValueError(f"draft net on {draft_net.device}; the "
+                                 f"engine runs on {self.device}")
+            self.draft_arena = PagedKVArena(
+                self._layer_dims(draft_net), num_pages=int(num_pages),
+                page_size=self.page_size,
+                dtype=_dtypes.promote_to_f32(
+                    draft_net.policy.compute_dtype),
+                device=self.device, with_allocator=False,
+                kv_dtype=kv_dtype)
         s, p = self.lanes, self.pages_per_seq
         self._tables = np.full((s, p), self.arena.sentinel, np.int32)
         self._pos = np.zeros(s, np.int64)       # global fed positions
@@ -258,8 +301,9 @@ class PagedDecodeEngine:
         self._reserve_left = np.zeros(s, np.int64)
         self._covered = np.zeros(s, np.int64)   # prefix-hit tokens/lane
         self._free_lanes = deque(range(s))
-        # dispatches per shape key: the fixed ladder the reference pins as
-        # one compiled program per bucket
+        # one captured program per shape key (util/capture.py), and the
+        # dispatches per key
+        self._graphs = _capture.GraphCache(self.device, self.registry)
         self.dispatch_keys: collections.Counter = collections.Counter()
         self._m_prefix_hits = self.registry.counter(
             "kv_prefix_hits_total",
@@ -286,6 +330,14 @@ class PagedDecodeEngine:
         self._warming = False
 
     # -- construction-time validation ---------------------------------
+
+    @staticmethod
+    def _layer_dims(net) -> Dict[str, Tuple[int, int]]:
+        dims = {}
+        for name in _transformer.attention_vertices(net):
+            layer = net.conf.vertices[name].layer
+            dims[name] = (layer.n_heads, layer.n_in // layer.n_heads)
+        return dims
 
     @staticmethod
     def _validate_net(net) -> None:
@@ -448,6 +500,7 @@ class PagedDecodeEngine:
         ps = self.page_size
         held = self._held[lane]
         alloc = self.arena.allocator
+        fresh: List[int] = []       # newly drawn or recycled pages
         while pos + n_new - 1 - base >= self.window:
             # the oldest page becomes the LAST LIVE table entry; only the
             # live prefix [0, len(held)) shifts, so no sentinel hole lands
@@ -464,6 +517,7 @@ class PagedDecodeEngine:
                 alloc.note_cow()
             else:
                 replacement = oldest
+            fresh.append(replacement)
             held.append(replacement)
             n = len(held)
             self._tables[lane, :n - 1] = self._tables[lane, 1:n]
@@ -476,7 +530,28 @@ class PagedDecodeEngine:
             self._reserve_left[lane] -= 1
             self._tables[lane, len(held)] = page
             held.append(page)
+            fresh.append(page)
         self._base[lane] = base
+        if fresh:
+            self._reset_page_scales(fresh)
+
+    def _reset_page_scales(self, pages: List[int]) -> None:
+        """int8 arenas: zero the scales of freshly drawn or recycled
+        pages. A recycled page's scale is a max over its previous owner's
+        rows: folding new writes into it would quantize them needlessly
+        coarsely, while a zero scale makes the first write rescale the
+        stale codes to exact zeros. Written in place, between dispatches,
+        under the scheduler's tick."""
+        arenas = [a for a in (self.arena, self.draft_arena)
+                  if a is not None and a.kv_dtype == "int8"]
+        if not arenas:
+            return
+        idx = torch.tensor(pages, dtype=torch.int64)
+        if self.device.type == "cuda":
+            idx = idx.pin_memory().to(self.device, non_blocking=True)
+        for arena in arenas:
+            for _codes, scales in arena.k_pools + arena.v_pools:
+                scales.index_fill_(0, idx, 0.0)
 
     def advance(self, lane: int, n: int) -> None:
         """Account ``n`` tokens written by the dispatch that just ran."""
@@ -486,14 +561,95 @@ class PagedDecodeEngine:
         """View-relative position of the lane's next token."""
         return int(self._pos[lane] - self._base[lane])
 
-    # -- the paged step ------------------------------------------------
+    # -- the dispatch protocol -----------------------------------------
 
-    def _stage(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the engine's device, copied without waiting
-        for the device (the source is host memory the copy stages before
-        it returns)."""
-        return torch.from_numpy(np.ascontiguousarray(a)).to(
-            self.device, non_blocking=True)
+    def _dispatch(self, name: str, step, placeholders: Dict[str, np.ndarray],
+                  values: Dict[str, object], *, kind: str,
+                  sync: bool = True):
+        """The one dispatch protocol of the engine. ``name`` is the shape
+        key; its entry (``util/capture.py``: a captured CUDA graph on the
+        card) is built on first use from ``placeholders`` — all-sentinel
+        tables, dropped slots, inactive lanes, so building never touches a
+        live page — with its wall on ``xla_compile_seconds``. The
+        dispatch stages ``values`` into the entry's static inputs and runs
+        it. ``sync=True`` reads the entry's one output on the host (the
+        dispatch's single host sync, inside the ``try`` so that an
+        asynchronous device failure surfaces here) and returns it as
+        numpy; ``sync=False`` returns the static outputs on the device (a
+        later sync waits them out). A failed dispatch or build zeroes
+        every pool in place and flushes the prefix index before
+        re-raising; the scheduler retires the in-flight batch and keeps
+        serving."""
+        self.dispatch_keys[name] += 1
+        t0 = time.perf_counter()
+        try:
+            with torch.inference_mode():
+                entry = self._graphs.get(name, step, placeholders)
+                entry.stage(**values)
+                outs = entry.run()
+                if sync:
+                    (out,) = outs
+                    outs = out.cpu().numpy()
+        except Exception:
+            self._reset_all_pools()
+            raise
+        self._note_dispatch(t0, kind, sync=sync)
+        return outs
+
+    def _reset_all_pools(self) -> None:
+        self.arena.reset_pools()
+        if self.draft_arena is not None:
+            self.draft_arena.reset_pools()
+        if self.arena.prefix_index is not None:
+            # the cached chains point into pools that just became zeros
+            self.arena.prefix_index.flush()
+
+    def _compile_wall(self) -> float:
+        """Total build wall (graph captures) this engine's registry has
+        seen: deltas around a dispatch attribute the build of a key that
+        ``warmup()`` missed to the requests that paid for it."""
+        h = self.registry.get("xla_compile_seconds")
+        return 0.0 if h is None else h.total_sum()
+
+    def _note_dispatch(self, t0: float, kind: str, sync: bool = True
+                       ) -> None:
+        if self._warming:
+            # warmup dispatches (and their builds) stay out of the
+            # steady-state series
+            return
+        dt = time.perf_counter() - t0
+        self._tick_dispatch_wall += dt
+        self._tick_dispatches += 1
+        self._m_dispatches.inc(kind=kind)
+        if sync:
+            self._m_syncs.inc()
+            self._m_tick.observe(dt, component="dispatch")
+
+    def _chunk_inputs(self, b: int, t: int) -> Dict[str, np.ndarray]:
+        """Placeholders of a paged chunk [b, t]: dropped slots through
+        all-sentinel tables."""
+        return {"ids": np.zeros((b, t), np.int32),
+                "tables": np.full((b, self.pages_per_seq),
+                                  self.arena.sentinel, np.int32),
+                "wslots": np.full((b, t), -1, np.int32),
+                "rel": np.zeros(b, np.int32)}
+
+    def _block_inputs(self, b: int, n_uniform: int
+                      ) -> Dict[str, np.ndarray]:
+        """Placeholders of a fused or speculative block over ``b``
+        inactive lanes."""
+        return {"last": np.zeros(b, np.int32),
+                "tables": np.full((b, self.pages_per_seq),
+                                  self.arena.sentinel, np.int32),
+                "rel": np.zeros(b, np.int32),
+                "active": np.zeros(b, bool),
+                "budget": np.zeros(b, np.int32),
+                "temps": np.zeros(b, np.float32),
+                "top_k": np.zeros(b, np.int32),
+                "top_p": np.ones(b, np.float32),
+                "u": np.zeros((b, n_uniform), np.float32)}
+
+    # -- the paged step ------------------------------------------------
 
     def run(self, ids: np.ndarray, write_slots: np.ndarray,
             rel_pos: np.ndarray, tables: np.ndarray,
@@ -507,53 +663,19 @@ class PagedDecodeEngine:
         name = f"paged_decode[S{b}xT{t_new}xP{self.pages_per_seq}]"
         arena = self.arena
 
-        def step():
+        def step(ids, tables, wslots, rel, rows):
             probs, _, _ = _transformer.paged_decode_forward(
                 self.net, self.net.params, arena.k_pools, arena.v_pools,
-                self._stage(ids.astype(np.int32)),
-                self._stage(tables.astype(np.int32)),
-                self._stage(write_slots.astype(np.int32)),
-                self._stage(rel_pos.astype(np.int32)))
+                ids, tables, wslots, rel)
             lanes = torch.arange(b, device=probs.device)
-            return probs[lanes, self._stage(rows.astype(np.int64))].float()
+            return probs[lanes, rows].float()
 
-        return self._dispatch(name, step, kind="paged")
-
-    def _dispatch(self, name: str, step, *, kind: str) -> np.ndarray:
-        """The one dispatch protocol of the engine: run ``step`` (device
-        work returning one tensor) and read its result on the host — the
-        dispatch's single host sync, inside the ``try`` so that an
-        asynchronous device failure surfaces here. A failed dispatch
-        rebuilds the pools (they may hold a half-written step) and
-        flushes the prefix index before re-raising; the scheduler retires
-        the in-flight batch and keeps serving on the fresh pools."""
-        self.dispatch_keys[name] += 1
-        t0 = time.perf_counter()
-        try:
-            with torch.inference_mode():
-                out = step().cpu().numpy()
-        except Exception:
-            self._reset_all_pools()
-            raise
-        self._note_dispatch(t0, kind)
-        return out
-
-    def _reset_all_pools(self) -> None:
-        self.arena.reset_pools()
-        if self.arena.prefix_index is not None:
-            # the cached chains point into pools that just became zeros
-            self.arena.prefix_index.flush()
-
-    def _note_dispatch(self, t0: float, kind: str) -> None:
-        if self._warming:
-            # warmup dispatches stay out of the steady-state series
-            return
-        dt = time.perf_counter() - t0
-        self._tick_dispatch_wall += dt
-        self._tick_dispatches += 1
-        self._m_dispatches.inc(kind=kind)
-        self._m_syncs.inc()
-        self._m_tick.observe(dt, component="dispatch")
+        placeholders = dict(self._chunk_inputs(b, t_new),
+                            rows=np.zeros(b, np.int64))
+        return self._dispatch(
+            name, step, placeholders,
+            dict(ids=ids, tables=tables, wslots=write_slots, rel=rel_pos,
+                 rows=rows), kind="paged")
 
     # -- fused multi-token block --------------------------------------
 
@@ -565,41 +687,139 @@ class PagedDecodeEngine:
         """One fused block: ``uniforms.shape[1]`` decode steps through
         ``models.transformer.fused_decode_loop``, with on-device sampling
         and EOS/budget self-retire, and ONE host read of the results.
-        Returns host ``(tokens [B, N], valid [B, N], n_emitted [B])``."""
+        Whether any lane samples is a key axis: ``fused_decode[...]`` and
+        ``fused_decode[...]|sampled`` are two programs (the reference's
+        one program branches with a ``lax.cond``). Returns host ``(tokens
+        [B, N], valid [B, N], n_emitted [B])``."""
         b, n = uniforms.shape
-        name = f"fused_decode[S{b}xN{n}xP{self.pages_per_seq}]"
-        arena = self.arena
         any_sampled = bool(np.any(temps > 0))
+        name = (f"fused_decode[S{b}xN{n}xP{self.pages_per_seq}]"
+                + ("|sampled" if any_sampled else ""))
+        arena = self.arena
 
-        def step():
+        def step(last, tables, rel, active, budget, eos, temps, top_k,
+                 top_p, u):
             toks, valid, n_emitted, _done, _, _ = \
                 _transformer.fused_decode_loop(
                     self.net, self.net.params, arena.k_pools,
-                    arena.v_pools, self._stage(last.astype(np.int32)),
-                    self._stage(tables.astype(np.int32)),
-                    self._stage(rel.astype(np.int32)),
-                    self._stage(active.astype(bool)),
-                    self._stage(budget.astype(np.int32)),
-                    self._stage(eos.astype(np.int32)),
-                    self._stage(temps.astype(np.float32)),
-                    self._stage(top_k.astype(np.int32)),
-                    self._stage(top_p.astype(np.float32)),
-                    self._stage(uniforms.astype(np.float32)),
-                    any_sampled=any_sampled)
+                    arena.v_pools, last, tables, rel, active, budget, eos,
+                    temps, top_k, top_p, u, any_sampled=any_sampled)
             # one tensor, so the block costs one device-to-host read
             return torch.cat([toks, valid.to(torch.int32),
                               n_emitted[:, None]], dim=1)
 
-        packed = self._dispatch(name, step, kind="fused")
+        placeholders = dict(self._block_inputs(b, n),
+                            eos=np.full(b, -1, np.int32))
+        packed = self._dispatch(
+            name, step, placeholders,
+            dict(last=last, tables=tables, rel=rel, active=active,
+                 budget=budget, eos=eos, temps=temps, top_k=top_k,
+                 top_p=top_p, u=uniforms), kind="fused")
         return packed[:, :n], packed[:, n:2 * n].astype(bool), packed[:, 2 * n]
 
+    # -- speculative draft / verify -----------------------------------
+
+    def run_draft_prefill(self, ids: np.ndarray, write_slots: np.ndarray,
+                          rel_pos: np.ndarray, tables: np.ndarray) -> None:
+        """Shadow prefill: the draft model feeds the same prompt chunk
+        into its own pools (same tables, same slots), so its first
+        drafting block sees the whole context. No output and no host
+        sync; a failure surfaces at the next synced dispatch."""
+        b, t = ids.shape
+        name = f"draft_prefill[S{b}xT{t}xP{self.pages_per_seq}]"
+        arena = self.draft_arena
+
+        def step(ids, tables, wslots, rel):
+            _transformer.paged_decode_forward(
+                self.draft_net, self.draft_net.params, arena.k_pools,
+                arena.v_pools, ids, tables, wslots, rel)
+            return ()
+
+        self._dispatch(name, step, self._chunk_inputs(b, t),
+                       dict(ids=ids, tables=tables, wslots=write_slots,
+                            rel=rel_pos), kind="draft_prefill", sync=False)
+
+    def run_draft(self, last: np.ndarray, tables: np.ndarray,
+                  rel: np.ndarray, active: np.ndarray,
+                  write_budget: np.ndarray, temps: np.ndarray,
+                  top_k: np.ndarray, top_p: np.ndarray,
+                  uniforms: np.ndarray):
+        """Draft half of a speculative block: K+1 steps of the draft net
+        (``uniforms [B, K+1]``). Returns the entry's DEVICE outputs
+        ``(draft_tokens [B, K], draft_dists [B, K, V])``; they feed
+        :meth:`run_verify` with no host sync between."""
+        b, k1 = uniforms.shape
+        any_sampled = bool(np.any(temps > 0))
+        name = (f"spec_draft[S{b}xK{k1 - 1}xP{self.pages_per_seq}]"
+                + ("|sampled" if any_sampled else ""))
+        arena = self.draft_arena
+
+        def step(last, tables, rel, active, budget, temps, top_k, top_p,
+                 u):
+            d_toks, d_dists, _, _ = _transformer.draft_decode_loop(
+                self.draft_net, self.draft_net.params, arena.k_pools,
+                arena.v_pools, last, tables, rel, active, budget, temps,
+                top_k, top_p, u, any_sampled=any_sampled)
+            return d_toks, d_dists
+
+        return self._dispatch(
+            name, step, self._block_inputs(b, k1),
+            dict(last=last, tables=tables, rel=rel, active=active,
+                 budget=write_budget, temps=temps, top_k=top_k,
+                 top_p=top_p, u=uniforms), kind="draft", sync=False)
+
+    def run_verify(self, last: np.ndarray, tables: np.ndarray,
+                   rel: np.ndarray, active: np.ndarray,
+                   write_budget: np.ndarray, d_toks, d_dists,
+                   temps: np.ndarray, top_k: np.ndarray,
+                   top_p: np.ndarray, u_accept: np.ndarray,
+                   u_fix: np.ndarray
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Verify half: one batched K+1 target chunk and the on-device
+        accept/reject/bonus (``models.transformer.spec_verify``). The
+        draft's device outputs are copied into this entry's static inputs
+        on the device. The block's ONE host sync happens here. Returns
+        host ``(emitted [B, K+1], valid [B, K+1], accepts [B])``."""
+        b, k = u_accept.shape
+        any_sampled = bool(np.any(temps > 0))
+        name = (f"spec_verify[S{b}xK{k}xP{self.pages_per_seq}]"
+                + ("|sampled" if any_sampled else ""))
+        arena = self.arena
+
+        def step(last, tables, rel, active, budget, d_toks, d_dists, temps,
+                 top_k, top_p, u_accept, u_fix):
+            emitted, valid, accepts, _, _ = _transformer.spec_verify(
+                self.net, self.net.params, arena.k_pools, arena.v_pools,
+                last, tables, rel, active, budget, d_toks, d_dists, temps,
+                top_k, top_p, u_accept, u_fix, any_sampled=any_sampled)
+            return torch.cat([emitted, valid.to(torch.int32),
+                              accepts[:, None]], dim=1)
+
+        placeholders = self._block_inputs(b, k + 1)
+        del placeholders["u"]
+        placeholders.update(
+            d_toks=np.zeros((b, k), np.int32),
+            d_dists=np.zeros((b, k, self.vocab), np.float32),
+            u_accept=np.zeros((b, k), np.float32),
+            u_fix=np.zeros((b, k + 1), np.float32))
+        packed = self._dispatch(
+            name, step, placeholders,
+            dict(last=last, tables=tables, rel=rel, active=active,
+                 budget=write_budget, d_toks=d_toks, d_dists=d_dists,
+                 temps=temps, top_k=top_k, top_p=top_p, u_accept=u_accept,
+                 u_fix=u_fix), kind="verify")
+        k1 = k + 1
+        return (packed[:, :k1], packed[:, k1:2 * k1].astype(bool),
+                packed[:, 2 * k1])
+
     def warmup(self) -> None:
-        """Run every dispatch shape of the configured mode once — every
-        power-of-two lane bucket × the prefill chunk and the t = 1 step
-        (or the fused block) — so the first live requests meet warm
-        library handles and a warm allocator, and ``dispatch_keys`` holds
-        the whole ladder. Warmup dispatches carry all-sentinel tables and
-        dropped write slots, so they cannot perturb the arena."""
+        """Build every entry of the configured mode's ladder up front, so
+        the first live requests pay no capture: every power-of-two lane
+        bucket × the prefill chunk, t = 1 when the prefix cache is on, and
+        the t = 1 step, or the fused block (greedy and sampled), or the
+        draft prefills, draft and verify (greedy and sampled). Warmup
+        dispatches carry all-sentinel tables, dropped write slots and
+        inactive lanes, so they cannot perturb the arena."""
         self._warming = True
         try:
             self._warmup_ladder()
@@ -610,28 +830,38 @@ class PagedDecodeEngine:
         b = 1
         while True:
             c = self.prefill_chunk
-            sentinel_tables = np.full((b, self.pages_per_seq),
-                                      self.arena.sentinel, np.int32)
-            zeros_i = np.zeros(b, np.int32)
-            self.run(np.zeros((b, c), np.int32),
-                     np.full((b, c), -1, np.int32), zeros_i,
-                     sentinel_tables, rows=zeros_i)
+            chunks = [c]
             if self.arena.prefix_index is not None and c > 1:
                 # prefix-cache hit ticks re-feed at t = 1 in every mode
-                self.run(np.zeros((b, 1), np.int32),
-                         np.full((b, 1), -1, np.int32), zeros_i,
-                         sentinel_tables, rows=zeros_i)
-            if self.block_len > 1:
-                self.run_fused(
-                    zeros_i, sentinel_tables, zeros_i, np.zeros(b, bool),
-                    zeros_i, np.full(b, -1, np.int32),
-                    np.zeros(b, np.float32), zeros_i,
-                    np.ones(b, np.float32),
-                    np.zeros((b, self.block_len), np.float32))
-            else:
-                self.run(np.zeros((b, 1), np.int32),
-                         np.full((b, 1), -1, np.int32), zeros_i,
-                         sentinel_tables, rows=zeros_i)
+                chunks.append(1)
+            if self.draft_net is None and self.block_len == 1:
+                chunks.append(1)                  # the ticked step
+            for t in dict.fromkeys(chunks):
+                a = self._chunk_inputs(b, t)
+                self.run(a["ids"], a["wslots"], a["rel"], a["tables"],
+                         rows=np.zeros(b, np.int64))
+                if self.draft_net is not None:
+                    self.run_draft_prefill(a["ids"], a["wslots"], a["rel"],
+                                           a["tables"])
+            for temp in (0.0, 1.0):               # greedy, then sampled
+                if self.draft_net is not None:
+                    k = self.draft_k
+                    a = self._block_inputs(b, k + 1)
+                    temps = np.full(b, temp, np.float32)
+                    d_toks, d_dists = self.run_draft(
+                        a["last"], a["tables"], a["rel"], a["active"],
+                        a["budget"], temps, a["top_k"], a["top_p"], a["u"])
+                    self.run_verify(
+                        a["last"], a["tables"], a["rel"], a["active"],
+                        a["budget"], d_toks, d_dists, temps, a["top_k"],
+                        a["top_p"], np.zeros((b, k), np.float32), a["u"])
+                elif self.block_len > 1:
+                    a = self._block_inputs(b, self.block_len)
+                    self.run_fused(
+                        a["last"], a["tables"], a["rel"], a["active"],
+                        a["budget"], np.full(b, -1, np.int32),
+                        np.full(b, temp, np.float32), a["top_k"],
+                        a["top_p"], a["u"])
             if b >= self.lanes:
                 break
             b <<= 1           # the ladder _compact produces
@@ -640,8 +870,9 @@ class PagedDecodeEngine:
 
     def swap_net(self, net) -> None:
         """Replace the served model at a step boundary. The topology and
-        parameter shapes must match; the prefix index is flushed (its K/V
-        came from the old parameters) and the ladder warmed again."""
+        parameter shapes must match; every entry is dropped (a captured
+        graph reads the old parameters), the prefix index is flushed (its
+        K/V came from the old parameters) and the ladder built again."""
         self._validate_net(net)
         self._check_decode_config(net)
         if list(net.topo_order) != list(self.net.topo_order):
@@ -657,6 +888,8 @@ class PagedDecodeEngine:
             raise ValueError(f"model swap to a net on {net.device}; the "
                              f"engine runs on {self.device}")
         self.net = net
+        # the graphs read the old parameters at their addresses
+        self._graphs.clear()
         if self.arena.prefix_index is not None:
             self.arena.prefix_index.flush()
         self.warmup()
@@ -734,6 +967,9 @@ class DecodeScheduler:
             "Steady-state seconds per output token, per finished sequence",
             buckets=[0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
                      0.1, 0.25, 0.5, 1.0])
+        self._m_draft = reg.counter(
+            "decode_draft_tokens_total",
+            "Speculative draft tokens, by verify outcome", ("result",))
         self._m_goodput = reg.counter(
             "decode_goodput_tokens_total",
             "Generated tokens by SLO outcome of their request: met "
@@ -967,16 +1203,25 @@ class DecodeScheduler:
             rows[i] = n - 1
         _faults.check("serving.decode_step",
                       {"phase": "prefill", "lanes": len(seqs)})
-        w0 = eng._tick_dispatch_wall
+        w0, c0 = eng._tick_dispatch_wall, eng._compile_wall()
         probs = eng.run(ids, wslots, rel, tables, rows=rows)   # [B, V]
+        if eng.draft_net is not None:
+            # shadow prefill: the draft's cache holds the same context
+            # before its first drafting block
+            eng.run_draft_prefill(ids, wslots, rel, tables)
+        # TTFT attribution: this chunk's dispatch wall, the builds split
+        # out, is charged to every sequence it prefilled
         d_wall = eng._tick_dispatch_wall - w0
+        d_compile = min(eng._compile_wall() - c0, d_wall)
         for i, seq in enumerate(seqs):
-            seq.prefill_s += d_wall
+            seq.prefill_s += d_wall - d_compile
+            seq.compile_s += d_compile
             if self.tracer is not None and seq.req.span is not None:
                 self.tracer.record(
                     "prefill_chunk", d_wall, parent=seq.req.span,
                     attributes={"lane": seq.lane, "bucket": ids.shape[0],
-                                "tokens": int(chunk_len[i])})
+                                "tokens": int(chunk_len[i]),
+                                "compile_s": round(d_compile, 6)})
         self._m_tokens.inc(sum(chunk_len), phase="prefill")
         for i, seq in enumerate(seqs):
             n = chunk_len[i]
@@ -998,6 +1243,8 @@ class DecodeScheduler:
         if not seqs:
             return False
         eng = self.engine
+        if eng.draft_net is not None:
+            return self._spec_block_tick(seqs)
         if eng.block_len > 1:
             return self._fused_block_tick(seqs)
         for seq in seqs:
@@ -1104,6 +1351,80 @@ class DecodeScheduler:
                        active=len(self._active))
         return True
 
+    def _spec_block_tick(self, seqs: List[_Sequence]) -> bool:
+        """One SPECULATIVE block: the draft runs K+1 steps, the target
+        verifies all K drafts in one batched chunk, accept/reject and the
+        bonus land on the device — 1..K+1 tokens per lane for two
+        dispatches and one host sync. EOS/max-tokens truncation of the
+        valid prefix is on the host (the block boundary is a host tick)."""
+        eng = self.engine
+        k = eng.draft_k
+        # write budget = tokens the lane can still emit: slots past it are
+        # dropped on the device, so a lane near max-tokens (or the window
+        # edge) never draws pages, or evicts live ones, for positions
+        # that cannot exist
+        wbudget = []
+        for seq in seqs:
+            remaining = seq.req.max_new_tokens - len(seq.req.tokens)
+            wbudget.append(min(k + 1, remaining))
+            eng.ensure_pages(seq.lane, wbudget[-1])
+        a = self._block_arrays(seqs, k + 1)
+        b = a["last"].shape[0]
+        write_budget = np.zeros(b, np.int32)
+        write_budget[:len(seqs)] = wbudget
+        u_acc = np.zeros((b, k), np.float32)
+        u_fix = np.zeros((b, k + 1), np.float32)
+        for i, seq in enumerate(seqs):
+            if seq.req.temperature > 0:
+                u_acc[i] = seq.req.rng.random(k)
+                u_fix[i] = seq.req.rng.random(k + 1)
+        _faults.check("serving.decode_step",
+                      {"phase": "spec_block", "lanes": len(seqs),
+                       "draft_k": k})
+        w0 = eng._tick_dispatch_wall
+        d_toks, d_dists = eng.run_draft(
+            a["last"], a["tables"], a["rel"], a["active"], write_budget,
+            a["temps"], a["top_k"], a["top_p"], a["u"])
+        emitted, valid, accepts = eng.run_verify(
+            a["last"], a["tables"], a["rel"], a["active"], write_budget,
+            d_toks, d_dists, a["temps"], a["top_k"], a["top_p"], u_acc,
+            u_fix)
+        spec_wall = eng._tick_dispatch_wall - w0
+        self._m_steps.inc()
+        self._m_occupancy.observe(float(len(seqs)))
+        emitted_total = 0
+        emitted_per_seq: List[int] = []
+        for i, seq in enumerate(seqs):
+            m = 0
+            for j in range(k + 1):
+                if not valid[i, j]:
+                    break
+                self._absorb_token(seq, int(emitted[i, j]))
+                m += 1
+                if seq.req.done:
+                    break
+            emitted_per_seq.append(m)
+            if not seq.req.done:
+                # a finished lane was released by _absorb_token's retire
+                eng.advance(seq.lane, m)
+            emitted_total += m
+            # acceptance over the drafts that had a chance to be served
+            # (valid context within the write budget): accepted drafts
+            # became output; rejected ones went unserved, by a target
+            # mismatch or because the lane finished first
+            chanced = min(k, wbudget[i])
+            served = min(int(accepts[i]), m, chanced)
+            self._m_draft.inc(served, result="accepted")
+            self._m_draft.inc(chanced - served, result="rejected")
+        self._record_block_spans(seqs, "speculative", b, emitted_per_seq,
+                                 spec_wall)
+        self._m_tokens.inc(emitted_total, phase="decode")
+        _flight.record("decode_block", kind="speculative",
+                       lanes=len(seqs), draft_k=k, tokens=emitted_total,
+                       sampled_lanes=int(np.count_nonzero(a["temps"] > 0)),
+                       active=len(self._active))
+        return True
+
     def _record_block_spans(self, seqs: List[_Sequence], kind: str,
                             bucket: int, tokens: List[int],
                             seconds: float) -> None:
@@ -1139,9 +1460,13 @@ class DecodeScheduler:
             queue_wait = max(0.0, (req.t_admit if req.t_admit is not None
                                    else req.t_submit) - req.t_submit)
             prefill = min(seq.prefill_s, max(0.0, ttft - queue_wait))
+            compile_s = min(seq.compile_s,
+                            max(0.0, ttft - queue_wait - prefill))
             req.ttft_breakdown = {
                 "queue_wait": queue_wait, "prefill": prefill,
-                "dispatch": max(0.0, ttft - queue_wait - prefill)}
+                "compile": compile_s,
+                "dispatch": max(0.0, ttft - queue_wait - prefill
+                                - compile_s)}
             if req.span is not None:
                 req.span.set_attribute("ttft_ms", round(ttft * 1000, 3))
         req.tokens.append(tok)

@@ -475,55 +475,84 @@ class PagedKVArena:
     marks page-table holes. Each pool is ``[num_pages + 2, page_size, h,
     d]`` of ``dtype`` on ``device``: the allocatable pages, the sentinel
     page (always zeros; holes read it) and a trash page that absorbs
-    dropped writes (``ops/paged_attention.py``). Float pools only: int8
-    pages (``kv_dtype="int8"``) are not yet ported. ``prefix_cache=True``
-    attaches a :class:`PrefixIndex` to the allocator.
+    dropped writes (``ops/paged_attention.py``).
+
+    ``kv_dtype="int8"`` makes each pool a ``(codes, scales)`` tuple:
+    ``[num_pages + 2, page_size, h, d]`` int8 codes and ``[num_pages + 2,
+    h]`` f32 per-(page, head) steps, quantized on write and dequantized by
+    ``paged_gather`` (``dtype`` then names only what a gather yields).
+    ``with_allocator=False`` builds a pools-only shadow arena — the
+    speculative draft model's K/V, indexed by the page tables the
+    target's allocator owns (one admission and eviction decision covers
+    both models); it neither allocates nor registers page gauges.
+    ``prefix_cache=True`` attaches a :class:`PrefixIndex` to the
+    allocator.
+
+    The pools are allocated once and only ever written in place (captured
+    CUDA graphs read them at their addresses).
     """
 
     def __init__(self, layer_dims: Dict[str, Tuple[int, int]], *,
                  num_pages: int, page_size: int, dtype=torch.float32,
                  device="cpu",
                  registry: Optional[_metrics.MetricsRegistry] = None,
+                 with_allocator: bool = True,
+                 kv_dtype: Optional[str] = None,
                  prefix_cache: bool = False):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         if not layer_dims:
             raise ValueError("arena needs at least one attention layer")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(f"kv_dtype must be None or 'int8', "
+                             f"got {kv_dtype!r}")
         self.page_size = int(page_size)
         self.num_pages = int(num_pages)
         self.sentinel = self.num_pages
         self.dtype = dtype
         self.device = torch.device(device)
-        self.kv_dtype = None
+        self.kv_dtype = kv_dtype
         self.layer_names = list(layer_dims)
-        self._layer_dims = dict(layer_dims)
-        self.k_pools: List[torch.Tensor] = []
-        self.v_pools: List[torch.Tensor] = []
-        self.reset_pools()
-        self.allocator = PageAllocator(num_pages, registry=registry)
-        self.prefix_index = (PrefixIndex(self.allocator, self.page_size)
-                             if prefix_cache else None)
+        self.k_pools: List = []
+        self.v_pools: List = []
+        rows = pool_rows(self.num_pages)
+        for h, d in layer_dims.values():
+            for pools in (self.k_pools, self.v_pools):
+                shape = (rows, self.page_size, h, d)
+                if kv_dtype == "int8":
+                    pools.append((
+                        torch.zeros(shape, dtype=torch.int8,
+                                    device=self.device),
+                        torch.zeros((rows, h), dtype=torch.float32,
+                                    device=self.device)))
+                else:
+                    pools.append(torch.zeros(shape, dtype=dtype,
+                                             device=self.device))
+        self.allocator = (PageAllocator(num_pages, registry=registry)
+                          if with_allocator else None)
+        self.prefix_index = (
+            PrefixIndex(self.allocator, self.page_size)
+            if (prefix_cache and self.allocator is not None) else None)
+
+    def _tensors(self) -> List[torch.Tensor]:
+        out = []
+        for p in self.k_pools + self.v_pools:
+            out.extend(p if isinstance(p, tuple) else (p,))
+        return out
 
     def reset_pools(self) -> None:
-        """Fresh zero pools: at construction and after a failed dispatch
-        (the pools may hold a half-written step, and the sentinel page
-        must be zeros). Callers recovering a live engine must also
-        ``prefix_index.flush()`` — zeroed pools would serve stale prefix
-        hits."""
-        self.k_pools = []
-        self.v_pools = []
-        rows = pool_rows(self.num_pages)
-        for h, d in self._layer_dims.values():
-            shape = (rows, self.page_size, h, d)
-            self.k_pools.append(torch.zeros(shape, dtype=self.dtype,
-                                            device=self.device))
-            self.v_pools.append(torch.zeros(shape, dtype=self.dtype,
-                                            device=self.device))
+        """Zero every pool in place, after a failed dispatch (the pools
+        may hold a half-written step, and the sentinel page must be
+        zeros). In place, so captured graphs stay valid. Callers
+        recovering a live engine must also ``prefix_index.flush()`` —
+        zeroed pools would serve stale prefix hits."""
+        for t in self._tensors():
+            t.zero_()
 
     def pages_for(self, n_tokens: int) -> int:
         """Pages needed to hold ``n_tokens`` (ceil)."""
         return -(-int(n_tokens) // self.page_size)
 
     def nbytes(self) -> int:
-        return sum(p.numel() * p.element_size()
-                   for p in self.k_pools + self.v_pools)
+        """Bytes of the pools (codes and scales for int8)."""
+        return sum(t.numel() * t.element_size() for t in self._tensors())

@@ -429,7 +429,7 @@ class InferenceServer:
                     "hit_pages": hit_pages.value() if hit_pages else 0.0,
                     "cached_pages": index.cached_pages,
                     "shared_pages": eng.arena.allocator.shared_pages,
-                    "kv_dtype": "fp",
+                    "kv_dtype": eng.arena.kv_dtype or "fp",
                 }
         return h
 

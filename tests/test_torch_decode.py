@@ -797,7 +797,7 @@ class TestSchedulerPolicy:
         # the first tick prefills and decodes (two dispatches): 5 ticks
         assert counts["dispatch"] == 6 and counts["bookkeeping"] == 5
         assert set(req.ttft_breakdown) == {"queue_wait", "prefill",
-                                           "dispatch"}
+                                           "compile", "dispatch"}
         text = reg.expose()
         for name in ("decode_batch_occupancy", "kv_pages_in_use",
                      "decode_retired_total", "decode_ttft_seconds",
@@ -879,30 +879,40 @@ class TestEngineValidation:
         _run(sched, [req])
         assert req.tokens == generate(swapped, [1, 2, 3], 4).tolist()
 
-    @pytest.mark.parametrize("what", ["draft_net", "kv_dtype",
-                                      "draft_transformer_lm",
-                                      "draft_decode_loop", "spec_verify"])
-    def test_deferred_features_raise_not_yet_ported(self, oracle_net, what):
-        """Speculative decoding and int8 KV pages raise by name."""
-        with pytest.raises(NotYetPorted, match="speculative|int8"):
-            if what == "draft_net":
-                PagedDecodeEngine(oracle_net, draft_net=oracle_net,
-                                  page_size=8, pages_per_seq=4)
-            elif what == "kv_dtype":
-                PagedDecodeEngine(oracle_net, kv_dtype="int8", page_size=8,
-                                  pages_per_seq=4)
-            elif what == "draft_transformer_lm":
-                T.draft_transformer_lm(VOCAB)
-            else:
-                getattr(T, what)()
+    @pytest.mark.parametrize("draft_k", [0, 17, 40])
+    def test_draft_k_out_of_range_is_refused(self, oracle_net, draft_k):
+        """``draft_k`` must lie in [1, 16] and leave room for K+1 tokens
+        in the window (32 here, so 40 fails both ways)."""
+        with pytest.raises(ValueError, match="draft_k"):
+            PagedDecodeEngine(oracle_net, draft_net=oracle_net,
+                              draft_k=draft_k, page_size=8, pages_per_seq=4,
+                              registry=MetricsRegistry())
 
-    def test_speculative_draft_length_is_refused(self, oracle_net):
-        """``draft_k`` comes back with speculative decoding; until then
-        the engine does not take it, so setting it cannot pass
-        silently (nor through the server's ``decode`` dict)."""
-        with pytest.raises(TypeError, match="draft_k"):
-            PagedDecodeEngine(oracle_net, draft_k=4, page_size=8,
-                              pages_per_seq=4)
+    def test_draft_k_must_fit_the_window(self):
+        net = _tnet(max_cache_t=8)
+        with pytest.raises(ValueError, match="exceeds the window"):
+            PagedDecodeEngine(net, draft_net=net, draft_k=8, page_size=4,
+                              pages_per_seq=2, registry=MetricsRegistry())
+
+    def test_draft_vocab_mismatch_is_refused(self, oracle_net):
+        other = ComputationGraph(transformer_lm(
+            VOCAB + 2, n_layers=1, d_model=16, n_heads=2, d_ff=32,
+            input_ids=True, max_cache_t=32), device="cpu").init()
+        with pytest.raises(ValueError, match="vocab"):
+            PagedDecodeEngine(oracle_net, draft_net=other, page_size=8,
+                              pages_per_seq=4, registry=MetricsRegistry())
+
+    def test_draft_excludes_fused_blocks(self, oracle_net):
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            PagedDecodeEngine(oracle_net, draft_net=oracle_net, block_len=4,
+                              page_size=8, pages_per_seq=4,
+                              registry=MetricsRegistry())
+
+    @pytest.mark.parametrize("kv_dtype", ["fp8", "int4", "float16"])
+    def test_kv_dtype_other_than_int8_is_refused(self, oracle_net, kv_dtype):
+        with pytest.raises(ValueError, match="kv_dtype"):
+            PagedDecodeEngine(oracle_net, kv_dtype=kv_dtype, page_size=8,
+                              pages_per_seq=4, registry=MetricsRegistry())
 
 
 # --------------------------------------------------------------------------

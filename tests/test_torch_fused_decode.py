@@ -447,8 +447,10 @@ class TestFusedLadderAndMetrics:
         eng = sched.engine
         eng.warmup()
         before = set(eng.dispatch_keys)
+        # the fused block's greedy and sampled variants are two keys
         assert before == ({f"paged_decode[S{b}xT4xP4]" for b in (1, 2, 4)}
-                          | {f"fused_decode[S{b}xN4xP4]" for b in (1, 2, 4)})
+                          | {f"fused_decode[S{b}xN4xP4]{v}"
+                             for b in (1, 2, 4) for v in ("", "|sampled")})
         rng = np.random.default_rng(9)
         reqs = []
         for wave in range(3):

@@ -173,16 +173,27 @@ class TestInferenceServer:
         finally:
             server.stop()
 
-    def test_decode_is_not_yet_ported(self):
-        """Generative decode is ported (tests/test_torch_decode.py); its
-        speculative and int8-page options are not, and say so by name."""
-        from deeplearning4j_tpu_torch.nn.conf.layers import NotYetPorted
+    def test_decode_options_reach_the_engine(self):
+        """The ``decode`` dict forwards the engine options: int8 pages,
+        reported by ``/healthz``, and a draft net for speculative blocks;
+        an unknown ``kv_dtype`` is refused."""
         net = _net()
-        cfg = {"max_batch": 2, "page_size": 4, "pages_per_seq": 2}
-        with pytest.raises(NotYetPorted, match="speculative decoding"):
-            _server(net, decode=dict(cfg, draft_net=net))
-        with pytest.raises(NotYetPorted, match="int8 KV pages"):
-            _server(net, decode=dict(cfg, kv_dtype="int8"))
+        cfg = {"max_batch": 2, "page_size": 4, "pages_per_seq": 2,
+               "prefill_chunk": 4}
+        server = _server(net, decode=dict(cfg, kv_dtype="int8",
+                                          draft_net=net, draft_k=2))
+        try:
+            eng = server.decode.engine
+            assert eng.arena.kv_dtype == "int8" and eng.draft_k == 2
+            assert eng.draft_arena.kv_dtype == "int8"
+            health = json.loads(urllib.request.urlopen(
+                f"http://127.0.0.1:{server.port}/healthz",
+                timeout=30).read())
+            assert health["decode"]["prefix_cache"]["kv_dtype"] == "int8"
+        finally:
+            server.stop()
+        with pytest.raises(ValueError, match="kv_dtype"):
+            _server(net, decode=dict(cfg, kv_dtype="int4"))
 
 
 class _BlockingModel:
