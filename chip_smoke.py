@@ -63,21 +63,50 @@ Phases, in order; any failure propagates and the script exits non-zero:
    draft_transformer_lm draft and with the target as its own draft
    (acceptance, greedy tokens, reproducibility, replay against eager);
    two concurrent POST /generate requests;
-9. a JSON line of the kernels (launches on the training path, error,
-   times, bound), the card line, and last {"ok": true, "device": {...}}.
+9. fleet main path (the serving tier): two InferenceServer replicas of a
+   flagship model with a 256-token window (4 lanes, the ticked step)
+   warming in the background and registered by ReplicaAgents in a
+   FileCoordinationStore, a FleetRouter in front: both register
+   ready=false while they capture and the router sends nothing until
+   they are ready (a /predict straight to a warming replica runs
+   flash_fwd beside the captures; replay against eager afterwards);
+   greedy and sampled /generate and a /predict through the router
+   (greedy tokens against generate up to near ties, /predict against
+   net.output); POST /profile on a replica while traffic flows (its trace
+   must name flash_fwd; a concurrent one answers 409); GET /debug/timeline
+   (each request's TTFT parts sum to its TTFT) and /debug/flightrecorder
+   (the router's events); two rolling deploys of a checkpoint saved from
+   other weights under a stream of requests (no shed, generations bumped,
+   swap seconds, the longest heartbeat gap against the lease, the graph
+   pools not growing with a swap; afterwards the new weights' tokens and
+   outputs); a replica hung inside a decode step (one failover, the
+   request completed on the survivor); then the training-health
+   telemetry: one flagship fit_batch with the stats on (each kernel 12
+   launches), the stats against a plain f64 recomputation from the same
+   gradients (norms within 1e-5 relative, counts and histograms exact),
+   the parameters bitwise equal to the step without stats, no added host
+   sync, the step's wall and device time and kernels with stats on and
+   off, and a NaN in one layer's parameter attributed to that layer and
+   served by GET /debug/health;
+10. a {"fleet": ...} JSON line of those readings, a JSON line of the
+   kernels (launches on the training path and per path, error, times,
+   bound), the card line, and last {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 import contextlib
 import json
+import math
 import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -92,12 +121,21 @@ from deeplearning4j_tpu_torch.nn.graph_runtime import ComputationGraph  # noqa: 
 from deeplearning4j_tpu_torch.ops import _nvcc  # noqa: E402
 from deeplearning4j_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from deeplearning4j_tpu_torch.models import transformer as tlm  # noqa: E402
-from deeplearning4j_tpu_torch.serving import InferenceServer  # noqa: E402
+from deeplearning4j_tpu_torch.parallel.elastic import (  # noqa: E402
+    FileCoordinationStore)
+from deeplearning4j_tpu_torch.serving import (  # noqa: E402
+    FleetRouter, InferenceServer, ReplicaAgent, rolling_set_model)
 from deeplearning4j_tpu_torch.serving.decode import (  # noqa: E402
     DecodeScheduler, PagedDecodeEngine)
 from deeplearning4j_tpu_torch.serving.kv_cache import PagedKVArena  # noqa: E402
 from deeplearning4j_tpu_torch.util import capture  # noqa: E402
+from deeplearning4j_tpu_torch.util import faults  # noqa: E402
+from deeplearning4j_tpu_torch.util import flightrecorder  # noqa: E402
+from deeplearning4j_tpu_torch.util import health  # noqa: E402
+from deeplearning4j_tpu_torch.util import profiling  # noqa: E402
 from deeplearning4j_tpu_torch.util.metrics import MetricsRegistry  # noqa: E402
+from deeplearning4j_tpu_torch.util.serialization import save_model  # noqa: E402
+from deeplearning4j_tpu_torch.util.tracing import Tracer  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 SEED = 20261016
@@ -657,6 +695,9 @@ def forward_seconds(net, ids, reps=5):
 # host calls that put work on the device, counted beside the kernels
 HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+# host calls that wait for the device
+HOST_SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
 
 
 def profile(fn, what, top=10, counts=None):
@@ -664,7 +705,9 @@ def profile(fn, what, top=10, counts=None):
     largest first: the top ``top`` and every flash kernel. Returns the
     device milliseconds (None if the profiler recorded no device
     kernels); ``counts``, a dict, receives the number of kernels run
-    ("kernels") and of host calls that launched work ("host")."""
+    ("kernels"), of host calls that launched work ("host") and of host
+    calls that waited for the device ("syncs", the closing synchronize
+    included)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
@@ -682,6 +725,8 @@ def profile(fn, what, top=10, counts=None):
     if counts is not None:
         counts["kernels"] = sum(e.count for e in events)
         counts["host"] = sum(host.values())
+        counts["syncs"] = sum(e.count for e in prof.key_averages()
+                              if e.key in HOST_SYNCS)
     print(f"profile: {what}, {total / 1e3:.3f} ms of device time in "
           f"{sum(e.count for e in events)} kernel launches; host launch "
           f"calls {host}")
@@ -1857,6 +1902,663 @@ def phase_decode():
         server.stop(drain=True, timeout=60)
 
 
+# --------------------------------------------------------------------------
+# fleet main path: two replicas behind a router, the rest of the HTTP
+# front, rolling deploys and failover; training-health telemetry
+# --------------------------------------------------------------------------
+
+# Two InferenceServer replicas of the flagship (mixed_bf16, random weights
+# from the seed) on the one card, each with a paged engine kept small so
+# its captures stay short: 4 lanes, 16-token pages, a 256-token window,
+# prefill chunks of 64, the ticked step (6 dispatch keys). Heartbeats every
+# 0.5 s, so readiness reaches the router quickly. lease_s: a replica's
+# heartbeat skips while its dispatch lock is held, which a model swap
+# holds for the whole recapture; the lease must outlast the longest gap
+# (the phase prints it and fails if the gap reaches the lease). A routed
+# /predict answers [1, 128, 32768] probabilities as JSON through two hops
+# (10-16 s observed), so the router's attempt timeout is 60 s; the
+# failover step lowers it to 8 s, which a 32-token decode stays far below.
+FLEET = {"window": 256, "lanes": 4, "page_size": 16, "prefill_chunk": 64,
+         "new_tokens": 32, "prompts": {"g48": 48, "g100": 100, "g200": 200},
+         "lease_s": 30.0, "heartbeat_s": 0.5, "attempt_timeout_s": 60.0,
+         "failover_attempt_s": 8.0, "profile_s": 2.0}
+
+
+def fleet_request(port, path, payload=None, timeout=300, headers=None):
+    """(status, body) of one HTTP call; GET without a payload."""
+    data = None if payload is None else json.dumps(payload).encode()
+    method = "POST" if payload is not None or path.startswith(
+        ("/profile", "/model")) else "GET"
+    rq = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data, method=method,
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(rq, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def fleet_net(seed):
+    V, L, D, H, F = (FLAGSHIP[k] for k in "VLDHF")
+    conf = transformer_lm(V, n_layers=L, d_model=D, n_heads=H, d_ff=F,
+                          dtype="mixed_bf16", input_ids=True, seed=seed,
+                          max_cache_t=FLEET["window"])
+    return ComputationGraph(conf, device=DEV).init()
+
+
+def predict_close(got, net, ids):
+    """max|Δp| of a /predict answer against the net's own output on the
+    same ids; fails above SERVE_TOL·max p."""
+    before = [kn.launches for kn in KERNELS]
+    ref = net.output(ids).float().cpu().numpy()
+    for kn, n in zip(KERNELS, before):    # comparison launches do not count
+        kn.launches = n
+    err = float(np.abs(np.asarray(got, np.float32) - ref).max())
+    if not err <= SERVE_TOL * float(ref.max()):
+        raise AssertionError(f"/predict differs from output: {err}")
+    return err
+
+
+@contextlib.contextmanager
+def heartbeat_gaps(store, replicas):
+    """Within the block, the store is polled for each replica's heartbeat
+    ``ts``; the dict the block gets receives the longest gap between two
+    heartbeats (the open gap at the end included), per replica."""
+    gaps = {r: 0.0 for r in replicas}
+    last = {r: (store.get_json(f"hb/{r}.json") or {}).get("ts")
+            for r in replicas}
+    stop = threading.Event()
+
+    def poll():
+        while not stop.wait(0.02):
+            for r in replicas:
+                ts = (store.get_json(f"hb/{r}.json") or {}).get("ts")
+                if ts is not None and ts != last[r]:
+                    if last[r] is not None:
+                        gaps[r] = max(gaps[r], ts - last[r])
+                    last[r] = ts
+
+    th = threading.Thread(target=poll, daemon=True)
+    th.start()
+    try:
+        yield gaps
+    finally:
+        stop.set()
+        th.join(timeout=5)
+        now = time.time()
+        for r in replicas:
+            if last[r] is not None:
+                gaps[r] = max(gaps[r], now - last[r])
+
+
+def plain_histogram(flat):
+    """The fixed-edge log10 histogram by its definition, without
+    bucketize: bucket j counts the finite x with e_(j-1) <= |x| < e_j over
+    the f32 edges 10^-12 .. 10^4; non-finite values go to the last."""
+    finite = torch.isfinite(flat)
+    a = torch.where(finite, flat.abs(), torch.zeros_like(flat))
+    n_fin = int(finite.sum())
+    at_least = [int(((a >= e) & finite).sum())
+                for e in torch.tensor(health._EDGE_VALUES,
+                                      dtype=torch.float32).tolist()]
+    hist = [n_fin - at_least[0]]
+    hist += [at_least[j - 1] - at_least[j] for j in range(1, len(at_least))]
+    hist.append(at_least[-1] + int((~finite).sum()))
+    return hist
+
+
+def plain_stats_errors(inputs, snap):
+    """The health snapshot against a plain recomputation from the step's
+    own parameters, raw gradients and deltas: per layer, the relative
+    error of the L2 norms (f64), and whether the non-finite gradient
+    counts and both histograms are equal."""
+    params, grads, deltas = inputs
+    worst, counts_equal, hists_equal = 0.0, True, True
+    for name in params:
+        keys = [k for k, t in params[name].items() if t.is_floating_point()]
+        if not keys:
+            continue
+        e = snap[name]
+        for field, tree in (("param_norm", params), ("grad_norm", grads),
+                            ("update_norm", deltas)):
+            want = math.sqrt(sum(float(torch.sum(
+                tree[name][k].detach().double() ** 2)) for k in keys))
+            worst = max(worst, abs(e[field] - want) / max(want, 1e-30))
+        nf = sum(int((~torch.isfinite(grads[name][k])).sum()) for k in keys)
+        counts_equal &= e["grad_nonfinite"] == nf
+        for field, tree in (("param_hist", params), ("update_hist", deltas)):
+            flat = torch.cat([tree[name][k].detach().float().reshape(-1)
+                              for k in keys])
+            hists_equal &= e[field] == plain_histogram(flat)
+    return worst, counts_equal, hists_equal
+
+
+@contextlib.contextmanager
+def stats_inputs():
+    """Within the block, the inputs of every health-stats reduction
+    (parameters after the update, raw gradients, deltas) are kept in the
+    list the block gets."""
+    seen = []
+    reduce = health.model_stats
+
+    def spy(params, grads, deltas, act_stats, config, **kw):
+        seen.append((params, grads, deltas))
+        return reduce(params, grads, deltas, act_stats, config, **kw)
+
+    health.model_stats = spy
+    try:
+        yield seen
+    finally:
+        health.model_stats = reduce
+
+
+def phase_fleet():
+    """Returns ({"fleet": readings}, {path: {kernel: launches}})."""
+    readings, launches = {}, {}
+    V, L = FLAGSHIP["V"], FLAGSHIP["L"]
+    rng = np.random.default_rng(SEED + 8)
+    prompts = {n: rng.integers(0, V, t).astype(np.int32)
+               for n, t in FLEET["prompts"].items()}
+    predict_ids = rng.integers(0, V, (1, 128)).astype(np.int32)
+    n_new = FLEET["new_tokens"]
+
+    # the next model, saved while the replicas start and serve (deflate
+    # and checksum release the GIL); the replicas' nets (one seed: the
+    # same weights) and the oracle
+    new_net = fleet_net(SEED + 9)
+    tmp = tempfile.mkdtemp(prefix="fleet_")
+    new_zip = os.path.join(tmp, "next.zip")
+    saved = {}
+
+    def save():
+        t0 = time.perf_counter()
+        save_model(new_net, new_zip, save_updater=False)
+        saved["s"] = time.perf_counter() - t0
+
+    saver = threading.Thread(target=save)
+    saver.start()
+    new_oracle = {n: oracle_decode(new_net, prompts[n], n_new)[1:3]
+                  for n in ("g100", "g200")}
+    nets = [fleet_net(SEED + 8) for _ in range(2)]
+    oracle = {n: oracle_decode(nets[0], p, n_new)[1:3]
+              for n, p in prompts.items()}
+
+    # 1. two replicas warming in the background, registered; the router
+    store = FileCoordinationStore(os.path.join(tmp, "store"))
+    replicas = ["r0", "r1"]
+    servers, agents = [], []
+    for kn in KERNELS:
+        kn.launches = 0
+    t_start = time.perf_counter()
+    for i, name in enumerate(replicas):
+        srv = InferenceServer(
+            nets[i], tracer=Tracer(host=name), max_batch=1, device=DEV,
+            decode={"max_batch": FLEET["lanes"],
+                    "page_size": FLEET["page_size"],
+                    "pages_per_seq": FLEET["window"] // FLEET["page_size"],
+                    "prefill_chunk": FLEET["prefill_chunk"],
+                    "request_timeout_s": 300.0},
+            warmup_background=True)
+        servers.append(srv)
+        agents.append(ReplicaAgent(
+            srv, store, replica=name, lease_s=FLEET["lease_s"],
+            heartbeat_every_s=FLEET["heartbeat_s"]).start())
+    docs = [store.get_json(f"hb/{r}.json") for r in replicas]
+    router = FleetRouter(store, lease_s=FLEET["lease_s"], retry_budget=2,
+                         request_timeout_s=300.0,
+                         attempt_timeout_s=FLEET["attempt_timeout_s"],
+                         shed_grace_s=120.0, tracer=Tracer(host="router"))
+    try:
+        if any(d["ready"] or "warming" not in d["ready_reasons"]
+               for d in docs):
+            raise AssertionError(f"replicas registered ready while "
+                                 f"capturing: {docs}")
+        if router._pick()[0] is not None:
+            raise AssertionError("the router picked a warming replica")
+        # a /predict straight to a warming replica: flash_fwd on the card
+        # while the other thread captures
+        code, body = fleet_request(servers[0].port, "/predict",
+                                   {"inputs": predict_ids.tolist()})
+        warm_predict = code == 200 and servers[0]._warming
+        if code != 200:
+            raise AssertionError(f"/predict during warm-up: {code} {body}")
+        predict_close(body["outputs"], nets[0], predict_ids)
+        # a request through the router waits for readiness
+        t_req = time.perf_counter()
+        code, body = fleet_request(router.port, "/generate", {
+            "prompt_ids": prompts["g48"].tolist(), "max_new_tokens": n_new})
+        waited = time.perf_counter() - t_req
+        ready_at = []
+        for srv in servers:
+            deadline = time.perf_counter() + 300
+            while not srv.ready:
+                if time.perf_counter() > deadline:
+                    raise AssertionError("a replica never became ready")
+                time.sleep(0.01)
+            ready_at.append(time.perf_counter() - t_start)
+        warm_s = [srv.registry.get("xla_compile_seconds").total_sum()
+                  for srv in servers]
+        if code != 200:
+            raise AssertionError(f"routed /generate: {code} {body}")
+        near_tie_compare(body["tokens"], *oracle["g48"], DECODE_PROB_TOL)
+        for name, srv in zip(replicas, servers):
+            with srv.decode._dispatch_lock:
+                check_replay(f"fleet replica {name} after background "
+                             "warm-up", srv.decode.engine)
+        print(f"fleet start-up: both replicas registered ready=false "
+              f"while capturing; ready after {[round(s, 3) for s in ready_at]}"
+              f" s, capture seconds {[round(s, 3) for s in warm_s]}; a "
+              f"/predict during warm-up answered"
+              f"{' while capturing' if warm_predict else ''}; the first "
+              f"routed request waited {waited:.3f} s")
+        readings.update(capture_s=warm_s, ready_after_s=ready_at,
+                        predict_during_capture=warm_predict)
+
+        # 2. traffic through the router: greedy, sampled, /predict
+        results, latency = {}, {}
+
+        def route(key, payload, path="/generate"):
+            t0 = time.perf_counter()
+            results[key] = fleet_request(router.port, path, payload)
+            latency[key] = time.perf_counter() - t0
+
+        calls = [threading.Thread(target=route, args=(n, {
+                     "prompt_ids": p.tolist(), "max_new_tokens": n_new}))
+                 for n, p in prompts.items()]
+        calls.append(threading.Thread(target=route, args=("sampled", {
+            "prompt_ids": prompts["g100"].tolist(), "max_new_tokens": n_new,
+            "seed": 1, **DECODE_SAMPLING})))
+        calls.append(threading.Thread(target=route, args=(
+            "predict", {"inputs": predict_ids.tolist()}, "/predict")))
+        for th in calls:
+            th.start()
+        for th in calls:
+            th.join(timeout=600)
+        bad = {k: v[0] for k, v in results.items() if v[0] != 200}
+        if bad or len(results) != len(calls):
+            raise AssertionError(f"routed requests failed: {bad}")
+        diverged = {n: near_tie_compare(results[n][1]["tokens"], *oracle[n],
+                                        DECODE_PROB_TOL) for n in prompts}
+        s_toks = results["sampled"][1]["tokens"]
+        if len(s_toks) != n_new or not all(0 <= t < V for t in s_toks):
+            raise AssertionError(f"sampled request: {results['sampled']}")
+        p_err = predict_close(results["predict"][1]["outputs"], nets[0],
+                              predict_ids)
+        print("fleet traffic through the router: greedy vs oracle "
+              + ", ".join(f"{n} {'equal' if d is None else f'near tie at {d[0]}'}"
+                          f" (on {results[n][1]['replica']})"
+                          for n, d in diverged.items())
+              + f"; sampled {len(s_toks)} tokens; /predict on "
+              f"{results['predict'][1]['replica']} max|dp| {p_err:.4g}; "
+              "latencies (s) " + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in latency.items()))
+        readings["greedy_equal_oracle"] = {n: d is None
+                                           for n, d in diverged.items()}
+
+        # 3. a profile while traffic flows, and a concurrent second one
+        prof = {}
+        th = threading.Thread(target=lambda: prof.update(r=fleet_request(
+            servers[0].port, f"/profile?seconds={FLEET['profile_s']}"
+            f"&dir={tmp}")))
+        th.start()
+        deadline = time.perf_counter() + 30
+        while not profiling.capture_in_progress():
+            if time.perf_counter() > deadline:
+                raise AssertionError("the profile did not start")
+            time.sleep(0.005)
+        traffic = threading.Thread(target=route, args=(
+            "during_profile", {"prompt_ids": prompts["g100"].tolist(),
+                               "max_new_tokens": n_new}))
+        traffic.start()
+        second = fleet_request(servers[1].port, "/profile?seconds=1")
+        code, body = fleet_request(servers[0].port, "/predict",
+                                   {"inputs": predict_ids.tolist()})
+        th.join(timeout=120)
+        traffic.join(timeout=300)
+        pcode, pbody = prof["r"]
+        names = [e["name"] for e in json.load(open(os.path.join(
+            pbody["dir"], "summary.json")))["events"]] if pcode == 200 else []
+        flash_named = any("flash_fwd" in n for n in names)
+        print(f"fleet /profile: {pcode}, {len(os.listdir(pbody['dir']))} "
+              f"files, {len(names)} event names, flash_fwd named: "
+              f"{flash_named}; the concurrent /profile answered "
+              f"{second[0]}; traffic during it: "
+              f"{results['during_profile'][0]}")
+        if pcode != 200 or not flash_named:
+            raise AssertionError("the profile does not name flash_fwd")
+        if second[0] != 409 or code != 200 \
+                or results["during_profile"][0] != 200:
+            raise AssertionError("/profile concurrency")
+        readings.update(profile_names_flash_fwd=flash_named,
+                        second_profile_code=second[0])
+
+        # 4. the debug endpoints
+        worst_ttft = 0.0
+        n_timelines = 0
+        for srv in servers:
+            code, tl = fleet_request(srv.port, "/debug/timeline")
+            for t in tl["requests"]:
+                a = t["attributes"]
+                if "ttft_breakdown_ms" not in a:
+                    continue
+                n_timelines += 1
+                worst_ttft = max(worst_ttft, abs(
+                    sum(a["ttft_breakdown_ms"].values()) - a["ttft_ms"])
+                    / max(a["ttft_ms"], 1e-9))
+        if n_timelines < len(prompts) or not worst_ttft <= 0.05:
+            raise AssertionError(f"timelines: {n_timelines}, worst TTFT "
+                                 f"breakdown error {worst_ttft}")
+        code, fr = fleet_request(servers[0].port, "/debug/flightrecorder")
+        router_kinds = {e["kind"] for e in fr["events"]
+                        if e.get("kind", "").startswith("fleet_")}
+        if "fleet_membership" not in router_kinds:
+            raise AssertionError("the flight recorder lacks the router's "
+                                 "events")
+        print(f"fleet debug: {n_timelines} request timelines, TTFT "
+              f"breakdown within {worst_ttft:.3g} of TTFT; flight recorder "
+              f"carries {sorted(router_kinds)}")
+        readings.update(timelines=n_timelines,
+                        ttft_breakdown_rel_err=worst_ttft)
+        launches["fleet"] = {kn.name: kn.launches for kn in KERNELS}
+        if launches["fleet"]["flash_fwd"] < L:
+            raise AssertionError(f"the fleet path launched "
+                                 f"{launches['fleet']}")
+
+        # 5. rolling deploys under a stream of requests, twice
+        saver.join()
+        if "s" not in saved:
+            raise AssertionError("the next model was not saved")
+        print(f"fleet: the next model saved in {saved['s']:.3f} s, beside "
+              "the steps above")
+        pools = [[srv.decode.engine._graphs.pool_bytes()
+                  for srv in servers]]
+        shed = router.registry.get("serving_shed_total")
+        shed0 = shed.value(reason="no_replica")
+        deploys = []
+        for round_ in range(2):
+            stop, codes = threading.Event(), []
+
+            def load():
+                while not stop.is_set():
+                    codes.append(fleet_request(router.port, "/generate", {
+                        "prompt_ids": prompts["g48"].tolist(),
+                        "max_new_tokens": 8})[0])
+                    time.sleep(0.05)
+
+            loader = threading.Thread(target=load)
+            with heartbeat_gaps(store, replicas) as gaps:
+                loader.start()
+                t0 = time.perf_counter()
+                try:
+                    res = rolling_set_model(router, new_zip,
+                                            ready_timeout_s=300)
+                finally:
+                    stop.set()
+                    loader.join(timeout=300)
+            wall = time.perf_counter() - t0
+            evs = [e for e in flightrecorder.events("fleet_rolling_deploy")
+                   ][-2:]
+            gens = [fleet_request(s.port, "/healthz")[1]["model_generation"]
+                    for s in servers]
+            pools.append([srv.decode.engine._graphs.pool_bytes()
+                          for srv in servers])
+            deploys.append({"wall_s": wall,
+                            "swap_s": [e["seconds"] for e in evs],
+                            "generations": gens, "requests": len(codes),
+                            "non_200": sum(c != 200 for c in codes),
+                            "max_heartbeat_gap_s": max(gaps.values())})
+            print(f"fleet rolling deploy {round_ + 1}: {wall:.3f} s, per "
+                  f"replica {[round(s, 3) for s in deploys[-1]['swap_s']]}"
+                  f" s; generations {gens}; {len(codes)} requests during "
+                  f"it, {deploys[-1]['non_200']} not 200; longest "
+                  f"heartbeat gap {max(gaps.values()):.3f} s (lease "
+                  f"{FLEET['lease_s']} s); graph pools {pools[-1]} bytes")
+            if [r["replica"] for r in res] != replicas or \
+                    gens != [round_ + 1] * 2 or deploys[-1]["non_200"]:
+                raise AssertionError(f"rolling deploy {round_ + 1}: {res}")
+            if not max(gaps.values()) < FLEET["lease_s"]:
+                raise AssertionError("a heartbeat gap reached the lease")
+        if shed.value(reason="no_replica") != shed0:
+            raise AssertionError("the router shed during the deploys")
+        if any(b > a for before, after in zip(pools, pools[1:])
+               for a, b in zip(before, after)):
+            raise AssertionError(f"the graph pool grew with a swap: {pools}")
+        code, body = fleet_request(router.port, "/generate", {
+            "prompt_ids": prompts["g100"].tolist(), "max_new_tokens": n_new})
+        new_div = near_tie_compare(body["tokens"], *new_oracle["g100"],
+                                   DECODE_PROB_TOL)
+        code, body = fleet_request(servers[1].port, "/predict",
+                                   {"inputs": predict_ids.tolist()})
+        new_err = predict_close(body["outputs"], new_net, predict_ids)
+        print(f"fleet after the deploys: greedy vs the new net's oracle "
+              f"{'equal' if new_div is None else f'near tie at {new_div[0]}'};"
+              f" /predict on r1 vs the new net max|dp| {new_err:.4g}")
+        readings.update(deploys=deploys, graph_pool_bytes=pools,
+                        shed_during_deploys=shed.value(
+                            reason="no_replica") - shed0,
+                        after_deploy_greedy_equal=new_div is None)
+
+        # 6. fail over: r0 hangs inside a decode step
+        hung, release = threading.Event(), threading.Event()
+        r0_thread = servers[0].decode._thread
+        steps = {"n": 0}
+
+        def hang(payload):
+            if threading.current_thread() is r0_thread \
+                    and payload.get("phase") == "decode":
+                steps["n"] += 1
+                if steps["n"] == 3:
+                    hung.set()
+                    release.wait(timeout=600)
+
+        router._cordoned.add("r1")        # the first attempt goes to r0
+        router.attempt_timeout_s = FLEET["failover_attempt_s"]
+        out = {}
+        with faults.FaultPlan().always("serving.decode_step",
+                                       exc=hang).active():
+            th = threading.Thread(target=lambda: out.update(r=fleet_request(
+                router.port, "/generate", {
+                    "prompt_ids": prompts["g200"].tolist(),
+                    "max_new_tokens": n_new,
+                    "idempotency_key": "failover"})))
+            t0 = time.perf_counter()
+            th.start()
+            if not hung.wait(timeout=120):
+                raise AssertionError("r0 never reached the hang")
+            router._cordoned.discard("r1")
+            th.join(timeout=600)
+            release.set()
+        code, body = out["r"]
+        fo = router.registry.get("fleet_failovers_total").total()
+        fo_div = None if code != 200 else near_tie_compare(
+            body["tokens"], *new_oracle["g200"], DECODE_PROB_TOL)
+        print(f"fleet failover: {code} in {time.perf_counter() - t0:.3f} s on "
+              f"{body.get('replica')} after {body.get('attempts')} attempts; "
+              f"failovers {fo:.0f}; tokens vs the oracle "
+              f"{'equal' if fo_div is None else f'near tie at {fo_div[0]}'}")
+        if code != 200 or fo != 1 or body["replica"] != "r1":
+            raise AssertionError(f"failover: {code} {body}; the phase "
+                                 f"counted {fo} failovers")
+        readings.update(failovers=fo, failover_replica=body["replica"],
+                        failover_greedy_equal=fo_div is None)
+        code, fr = fleet_request(servers[1].port, "/debug/flightrecorder")
+        kinds = {e["kind"] for e in fr["events"]}
+        if not {"fleet_failover", "fleet_rolling_deploy"} <= kinds:
+            raise AssertionError("the flight recorder lacks the deploy or "
+                                 "failover events")
+    finally:
+        router.stop()
+        for a in agents:
+            a.stop(deregister=True)
+        for s in servers:
+            s.stop(drain=True, timeout=60)
+    del servers, agents, router, nets, new_net
+    torch.cuda.empty_cache()
+
+    # 7. training-health telemetry on the flagship step
+    health_readings, health_launches = phase_health()
+    readings["health"] = health_readings
+    launches["health"] = health_launches
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"fleet": readings}, launches
+
+
+def net_state(net):
+    """Clones of the parameters, the optimizer state and the counters."""
+    def clone(tree):
+        if isinstance(tree, dict):
+            return {k: clone(v) for k, v in tree.items()}
+        return tree.detach().clone() if torch.is_tensor(tree) else tree
+    return (clone(net.params), clone(net.updater_state),
+            net._update_count, net.iteration_count)
+
+
+def restore_state(net, state):
+    """Write a ``net_state`` back in place (the tensors keep their
+    addresses)."""
+    def put(dst, src):
+        if isinstance(dst, dict):
+            for k in dst:
+                put(dst[k], src[k])
+        elif torch.is_tensor(dst):
+            dst.copy_(src)
+    with torch.no_grad():
+        put(net.params, state[0])
+        put(net.updater_state, state[1])
+    net._update_count, net.iteration_count = state[2], state[3]
+
+
+def phase_health():
+    """The flagship training step with the health stats on and off, from
+    the same state: stats within tolerance of a plain recomputation, the
+    parameters bitwise equal, no added host sync, the NaN attributed.
+    Returns (readings, {kernel: launches of the stats step})."""
+    V, L, D, H, F, T, B = (FLAGSHIP[k] for k in "VLDHFTB")
+    conf = transformer_lm(V, n_layers=L, d_model=D, n_heads=H, d_ff=F,
+                          dtype="mixed_bf16", input_ids=True,
+                          seed=SEED + 10)
+    net = ComputationGraph(conf, device=DEV).init()
+    ids = np.random.default_rng(SEED + 10).integers(
+        0, V, (B, T + 1)).astype(np.int32)
+    x = torch.as_tensor(ids[:, :-1], device=DEV)
+    y = torch.as_tensor(ids[:, 1:], device=DEV)
+    state0 = net_state(net)
+
+    def step(stats):
+        restore_state(net, state0)
+        if stats:
+            net.enable_health_stats()
+        else:
+            net.disable_health_stats()
+        t0 = time.perf_counter()
+        loss = net.fit_batch(x, y)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, loss
+
+    before = [kn.launches for kn in KERNELS]
+    step(False)                        # first calls: library set-up
+    step(True)
+    walls = {False: [], True: []}
+    for _ in range(3):
+        for stats in (False, True):
+            walls[stats].append(step(stats)[0])
+    step(False)
+    p_plain = net_state(net)[0]
+    step(False)
+    plain_repeats = all(torch.equal(a, p_plain[v][k])
+                        for v, ps in net.params.items()
+                        for k, a in ps.items())
+    dev = {}
+    for stats in (False, True):
+        restore_state(net, state0)
+        net.enable_health_stats() if stats else net.disable_health_stats()
+        counts = {}
+        ms = profile(lambda: net.fit_batch(x, y),
+                     f"one training step, health stats "
+                     f"{'on' if stats else 'off'}", top=12, counts=counts)
+        dev[stats] = (ms, counts.get("kernels"), counts.get("host"),
+                      counts.get("syncs"))
+    n_sync_plain, n_sync_stats = dev[False][3], dev[True][3]
+    for kn, n in zip(KERNELS, before):   # these launches do not count
+        kn.launches = n
+
+    listener = health.HealthListener(frequency=1, model="flagship",
+                                     registry=MetricsRegistry())
+    net.set_listeners(listener)
+    with stats_inputs() as seen:
+        restore_state(net, state0)
+        net.enable_health_stats()
+        for kn in KERNELS:
+            kn.launches = 0
+        net.fit_batch(x, y)
+        torch.cuda.synchronize()
+        launches = {kn.name: kn.launches for kn in KERNELS}
+    net.set_listeners()
+    bitwise = all(torch.equal(a, p_plain[v][k])
+                  for v, ps in net.params.items() for k, a in ps.items())
+    snap = health.latest_stats(net).value()
+    norm_err, counts_equal, hists_equal = plain_stats_errors(seen[-1], snap)
+    del seen
+    report = listener.engine.last_report
+    print(f"health: one fit_batch with stats launched {launches}; norms "
+          f"within {norm_err:.3g} relative of a plain f64 recomputation "
+          f"(bound 1e-5); non-finite counts equal: {counts_equal}; "
+          f"histograms equal: {hists_equal}; parameters bitwise equal to "
+          f"the step without stats: {bitwise} (the plain step repeats "
+          f"bitwise: {plain_repeats}); host calls waiting for the card in "
+          f"a profiled step {n_sync_plain} without stats, {n_sync_stats} "
+          f"with; rule report "
+          f"{report['state'] if report else None}")
+    for stats in (False, True):
+        ms, kernels, host, _ = dev[stats]
+        print(f"health: step with stats {'on' if stats else 'off'}: wall "
+              f"{[round(w * 1e3, 3) for w in walls[stats]]} ms, device "
+              f"{ms} ms in {kernels} kernels from {host} host launch calls")
+    if any(n != L for n in launches.values()):
+        raise AssertionError(f"the stats step launched {launches}")
+    if not (norm_err <= 1e-5 and counts_equal and hists_equal):
+        raise AssertionError("health stats disagree with the plain "
+                             "recomputation")
+    if not bitwise:
+        raise AssertionError("the stats step moved the parameters "
+                             "differently")
+    if n_sync_stats != n_sync_plain or report is None:
+        raise AssertionError("the stats step added a host sync, or the "
+                             "listener saw no report")
+
+    # a NaN in one layer's parameter: attributed, and served
+    poisoned = f"blk{L // 2 - 1}_ff1"
+    with torch.no_grad():
+        net.params[poisoned]["W"][0, 0] = float("nan")
+    rep = health.attribute_nonfinite(net, x, y,
+                                     iteration=net.iteration_count)
+    srv = InferenceServer(net, max_batch=1, device=DEV)
+    try:
+        code, body = fleet_request(srv.port, "/debug/health")
+    finally:
+        srv.stop(drain=False)
+    served = (body.get("attribution") or {}).get("layer")
+    print(f"health: a NaN in {poisoned}.W attributed to {rep.summary()}; "
+          f"GET /debug/health names {served} (report "
+          f"{(body.get('report') or {}).get('state')})")
+    if (rep.quantity, rep.layer) != ("param", poisoned) or \
+            served != poisoned or body.get("report") is None:
+        raise AssertionError("the NaN was not attributed to its layer")
+    readings = {"norm_rel_err": norm_err, "counts_equal": counts_equal,
+                "hists_equal": hists_equal, "params_bitwise": bitwise,
+                "plain_step_repeats_bitwise": plain_repeats,
+                "host_syncs": [n_sync_plain, n_sync_stats],
+                "attributed": rep.layer, "debug_health_layer": served,
+                "step_wall_ms": {k: [w * 1e3 for w in walls[v]]
+                                 for k, v in (("off", False), ("on", True))},
+                "step_device_ms": {"off": dev[False][0], "on": dev[True][0]},
+                "step_kernels": {"off": dev[False][1], "on": dev[True][1]},
+                "step_host_launch_calls": {"off": dev[False][2],
+                                           "on": dev[True][2]}}
+    return readings, launches
+
+
 def timed_phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1883,6 +2585,7 @@ def main():
     train_launches = timed_phase("training main path", phase_training, net)
     del net
     timed_phase("decode main path", phase_decode)
+    fleet, fleet_launches = timed_phase("fleet main path", phase_fleet)
 
     src = "deeplearning4j_tpu_torch/ops/csrc/"
     ref = "deeplearning4j_tpu/ops/flash_attention.py:"
@@ -1908,6 +2611,13 @@ def main():
                 "tpu_kernels": ["_bwd_dkv_kernel"],
                 "launches": train_launches["flash_bwd_dkv"],
                 **bwd_timing["flash_bwd_dkv"]}]
+    for k in kernels:
+        k["launches_by_path"] = {
+            "forward": fwd_launches if k["name"] == "flash_fwd" else 0,
+            "training": train_launches[k["name"]],
+            "fleet": fleet_launches["fleet"][k["name"]],
+            "health": fleet_launches["health"][k["name"]]}
+    print(json.dumps(fleet))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,14 +11,16 @@ Entry points (``ComputationGraph``, ``util.serialization.load_model``,
 ``serving.InferenceServer``) run on ``device="cuda"`` unless the caller
 passes ``device="cpu"``; without a card they raise instead of falling back.
 
-Ported so far: the transformer-LM inference path, from configuration to
-``POST /predict``.
+Ported so far: the transformer-LM flagship from configuration through
+training, decode and the serving tier (the HTTP front, the fleet and the
+training-health telemetry).
 """
 
 __version__ = "0.1.0"
 
 # Lazy module surface: keep `import deeplearning4j_tpu_torch` light.
-_SUBMODULES = {"nn", "models", "ops", "serving", "util", "dtypes"}
+_SUBMODULES = {"nn", "models", "ops", "optimize", "parallel", "serving",
+               "util", "dtypes"}
 
 
 def __getattr__(name):

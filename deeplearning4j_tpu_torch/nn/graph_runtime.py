@@ -12,8 +12,14 @@ its gradients (torch autograd in place of ``jax.grad``), gradient
 normalization, the updater's deltas, and the parameters updated in place.
 ``fit_batch`` takes one step, ``fit_repeated`` K steps on one batch and
 ``fit_scan`` one step on each of K staged batches; the losses stay on the
-device. Truncated BPTT, gradient checkpointing, dropout and listeners
-are not yet ported and raise ``NotYetPorted``.
+device. Listeners fire at the reference's points, with the loss as a
+``LazyScore`` (``fit_repeated``/``fit_scan`` read their K losses in one
+transfer first, as the reference replays them). With
+``enable_health_stats()`` the step also reduces the per-layer health
+stats (``util/health.py``) beside its update, from the same gradients
+and deltas; ``fit_repeated``/``fit_scan`` keep the last step's. Truncated
+BPTT, gradient checkpointing and dropout are not yet ported and raise
+``NotYetPorted``.
 
 Streaming inference (``rnn_time_step``) carries each attention layer's
 K/V cache between calls; the fed-step count that the reference keeps
@@ -32,6 +38,8 @@ import torch
 from .. import dtypes as _dtypes
 from .. import losses as _losses
 from ..optimize import updaters as _updaters
+from ..optimize.listeners import as_listener_score
+from ..util import health as _health
 from .conf.graph import ComputationGraphConfiguration, LayerVertex
 from .conf.layers import NotYetPorted
 from ..util.netutil import note_streamed_steps, precheck_streamed_steps
@@ -84,6 +92,10 @@ class ComputationGraph(torch.nn.Module):
         # streaming carries (rnn_time_step): {vertex: cache state}
         self._rnn_state: Optional[Dict[str, Dict[str, Any]]] = None
         self._rnn_steps_fed = 0
+        self.listeners: List[Any] = []
+        # training-health stats (util.health): None = off
+        self.health_stats: Optional[_health.StatsConfig] = None
+        self._last_health_stats: Optional[_health.DeviceStats] = None
 
     def _vertex_layer(self, name: str):
         v = self.conf.vertices[name]
@@ -195,13 +207,14 @@ class ComputationGraph(torch.nn.Module):
             raise ValueError("call init() or load parameters first")
         return params
 
-    def _forward(self, inputs: List[torch.Tensor],
-                 masks=None) -> Dict[str, torch.Tensor]:
+    def _forward(self, inputs: List[torch.Tensor], masks=None, *,
+                 params=None) -> Dict[str, torch.Tensor]:
         """Walk the topo order; returns {vertex: activation}. ``masks``:
         one per network input (or None), propagated along the DAG by each
         vertex's ``output_mask``. (``output`` passes none, as in the
-        reference.)"""
-        params = self._require_params()
+        reference.) ``params`` replaces the net's parameters (NaN
+        attribution replays a poisoned tree)."""
+        params = self._require_params() if params is None else params
         acts: Dict[str, torch.Tensor] = dict(zip(self.conf.network_inputs,
                                                  inputs))
         mask_map = dict(zip(self.conf.network_inputs,
@@ -297,11 +310,15 @@ class ComputationGraph(torch.nn.Module):
     # loss
     # ------------------------------------------------------------------
 
-    def _loss_fn(self, inputs, labels, masks=None) -> torch.Tensor:
+    def _loss_fn(self, inputs, labels, masks=None, *, params=None,
+                 collect_stats: Optional[_health.StatsConfig] = None):
         """The training loss: every vertex but the output layers runs
         forward (with ``train=True``); each output layer is scored from its
         hidden input (``_output_score``); the l1/l2 penalty is added. The
-        reference's unsegmented walk without health stats."""
+        reference's unsegmented walk. With ``collect_stats`` it returns
+        ``(loss, {vertex: act_moments})``, each vertex's activation
+        summarised (detached) as it is produced. ``params`` replaces the
+        net's parameters."""
         if not self._output_layer_names:
             raise ValueError(
                 "no output vertex has a loss (need an output layer at a "
@@ -309,8 +326,9 @@ class ComputationGraph(torch.nn.Module):
         if self.conf.training.gradient_checkpointing:
             raise NotYetPorted("gradient_checkpointing is not yet ported to "
                                "the PyTorch package")
-        params = self._require_params()
+        params = self._require_params() if params is None else params
         out_set = set(self._output_layer_names)
+        act_stats: Dict[str, tuple] = {}
         # output layers that also feed other vertices still run forward
         consumed = {i for ins in self.conf.vertex_inputs.values() for i in ins}
         acts: Dict[str, torch.Tensor] = dict(zip(self.conf.network_inputs,
@@ -334,7 +352,12 @@ class ComputationGraph(torch.nn.Module):
                                  train=True)
                 acts[name] = out
                 mask_map[name] = v.output_mask(in_masks)
+                if collect_stats is not None:
+                    act_stats[name] = _health.act_moments(
+                        out, collect_stats.act_sample)
         total = total + self._reg_penalty(params)
+        if collect_stats is not None:
+            return total.to(self._loss_dtype()), act_stats
         return total.to(self._loss_dtype())
 
     def _loss_dtype(self):
@@ -397,47 +420,119 @@ class ComputationGraph(torch.nn.Module):
     # training
     # ------------------------------------------------------------------
 
+    def enable_health_stats(self, config=True) -> None:
+        """Reduce the per-layer training-health stats (``util.health``) in
+        every training step from the next fit call on. Consumers read
+        ``util.health.latest_stats(net)`` — one host sync per read, the
+        snapshot carries the step loss."""
+        self.health_stats = _health.StatsConfig.coerce(config)
+
+    def disable_health_stats(self) -> None:
+        self.health_stats = None
+
     def set_listeners(self, *listeners) -> None:
+        # varargs or one collection (the reference's two overloads)
         if len(listeners) == 1 and isinstance(listeners[0], (list, tuple)):
             listeners = tuple(listeners[0])
-        if listeners:
-            raise NotYetPorted("training listeners are not yet ported to "
-                               "the PyTorch package")
+        self.listeners = list(listeners)
+
+    def add_listener(self, listener) -> None:
+        self.listeners.append(listener)
+
+    def _fire_iteration(self, batch_size, loss) -> None:
+        self.iteration_count += 1
+        if not self.listeners:
+            return
+        # the device loss reaches the host only when a listener reads it
+        score = as_listener_score(loss)
+        for listener in self.listeners:
+            if hasattr(listener, "record_batch"):
+                listener.record_batch(batch_size)
+            listener.iteration_done(self, self.iteration_count, score)
+
+    def _fire_replay(self, batch_size, losses: torch.Tensor) -> None:
+        """Listener firing for K updates in one call: one transfer of the
+        K losses, then one firing per update with host floats."""
+        k = int(losses.shape[0])
+        if not self.listeners:
+            self.iteration_count += k
+            return
+        per_step = losses.detach().cpu().numpy()
+        for i in range(k):
+            self._fire_iteration(batch_size, per_step[i])
 
     def _check_trainable(self, api: str) -> None:
         if self.conf.backprop_type == "truncated_bptt":
             raise NotYetPorted(f"{api}: truncated BPTT is not yet ported to "
                                "the PyTorch package")
 
-    def _loss_and_grads(self, inputs, labels, masks):
+    def _loss_and_grads(self, inputs, labels, masks, collect_stats=None):
         """(loss, {vertex: {param: grad}}) — ``jax.value_and_grad`` of the
-        reference's ``_loss_fn``, by torch autograd."""
+        reference's ``_loss_fn``, by torch autograd; with
+        ``collect_stats``, (loss, grads, activation stats)."""
         params = self._require_params()
         named = [(v, k, p) for v, ps in params.items() for k, p in ps.items()]
-        loss = self._loss_fn(inputs, labels, masks)
+        out = self._loss_fn(inputs, labels, masks,
+                            collect_stats=collect_stats)
+        loss, act_stats = out if collect_stats is not None else (out, None)
         gs = torch.autograd.grad(loss, [p for _, _, p in named],
                                  allow_unused=True)
         grads: Dict[str, Dict[str, torch.Tensor]] = {v: {} for v in params}
         for (v, k, p), g in zip(named, gs):
             grads[v][k] = torch.zeros_like(p) if g is None else g
-        return loss.detach(), grads
+        if collect_stats is None:
+            return loss.detach(), grads
+        return loss.detach(), grads, act_stats
 
-    def _step_and_update(self, inputs, labels, masks) -> torch.Tensor:
+    def _step_and_update(self, inputs, labels, masks, stats=None):
         """One update: loss and gradients, gradient normalization, the
         updater's deltas subtracted from the parameters in place. Returns
-        the loss on the device."""
+        the loss on the device; with ``stats`` (a ``StatsConfig``),
+        ``(loss, health stats tree)`` — reduced after the update from the
+        raw gradients, the deltas and the updated parameters, so the
+        update itself is the same computation either way."""
         if self._updater is None:
             self.init_updater()
         t = self.conf.training
-        loss, grads = self._loss_and_grads(inputs, labels, masks)
+        if stats is None:
+            loss, grads_raw = self._loss_and_grads(inputs, labels, masks)
+            act_stats = None
+        else:
+            loss, grads_raw, act_stats = self._loss_and_grads(
+                inputs, labels, masks, collect_stats=stats)
         grads = _updaters.normalize_gradients(
-            grads, t.gradient_normalization,
+            grads_raw, t.gradient_normalization,
             float(t.gradient_normalization_threshold))
         deltas, self.updater_state = self._updater.update(
             grads, self.updater_state, self._update_count)
-        _updaters.apply_updates(self.params, deltas)
+        params = self.params
+        _updaters.apply_updates(params, deltas)
         self._update_count += 1
-        return loss
+        if stats is None:
+            return loss
+        with torch.no_grad():
+            tree = _health.model_stats(params, grads_raw, deltas, act_stats,
+                                       stats, loss=loss)
+        return loss, tree
+
+    def _steps(self, batches) -> torch.Tensor:
+        """One update per (inputs, labels, masks) of ``batches``; the last
+        one reduces the health stats when they are on. Returns the [k]
+        losses on the device."""
+        cfg = self.health_stats
+        losses = []
+        for i, (x, y, m) in enumerate(batches):
+            last = cfg is not None and i == len(batches) - 1
+            out = self._step_and_update(x, y, m, stats=cfg if last else None)
+            if last:
+                out, tree = out
+                self._last_health_stats = _health.DeviceStats(
+                    tree, iteration=self.iteration_count + len(batches),
+                    model="ComputationGraph")
+            losses.append(out)
+        losses = torch.stack(losses)
+        self._score = losses[-1]
+        return losses
 
     def fit_batch(self, inputs, labels, masks=None) -> torch.Tensor:
         """One update. inputs/labels: an array or a list of arrays
@@ -445,21 +540,19 @@ class ComputationGraph(torch.nn.Module):
         masks. Returns the loss as a 0-dim tensor on the device."""
         self._check_trainable("fit_batch")
         inputs, labels, masks = self._stage(inputs, labels, masks)
-        loss = self._step_and_update(inputs, labels, masks)
-        self._score = loss
-        self.iteration_count += 1
+        loss = self._steps([(inputs, labels, masks)])[0]
+        self._fire_iteration(inputs[0].shape[0], loss)
         return loss
 
     def fit_repeated(self, inputs, labels, k: int, masks=None) -> torch.Tensor:
         """K updates on one batch: the same steps as K ``fit_batch`` calls,
         with the losses kept on the device — the caller's read of the
-        returned [k] tensor is the one host sync."""
+        returned [k] tensor is the one host sync (listeners, when set,
+        read them once for their replay)."""
         self._check_trainable("fit_repeated")
         inputs, labels, masks = self._stage(inputs, labels, masks)
-        losses = torch.stack([self._step_and_update(inputs, labels, masks)
-                              for _ in range(int(k))])
-        self._score = losses[-1]
-        self.iteration_count += int(k)
+        losses = self._steps([(inputs, labels, masks)] * int(k))
+        self._fire_replay(inputs[0].shape[0], losses)
         return losses
 
     def fit_scan(self, xs, ys, masks=None) -> torch.Tensor:
@@ -468,14 +561,10 @@ class ComputationGraph(torch.nn.Module):
         optional likewise. Returns the [k] losses on the device."""
         self._check_trainable("fit_scan")
         xs, ys, masks = self._stage(xs, ys, masks)
-        k = xs[0].shape[0]
-        losses = []
-        for i in range(k):
-            ms = (None if masks is None
-                  else [None if m is None else m[i] for m in masks])
-            losses.append(self._step_and_update([x[i] for x in xs],
-                                                [y[i] for y in ys], ms))
-        losses = torch.stack(losses)
-        self._score = losses[-1]
-        self.iteration_count += k
+        batches = [([x[i] for x in xs], [y[i] for y in ys],
+                    None if masks is None
+                    else [None if m is None else m[i] for m in masks])
+                   for i in range(xs[0].shape[0])]
+        losses = self._steps(batches)
+        self._fire_replay(xs[0].shape[1], losses)
         return losses

@@ -1469,6 +1469,10 @@ class DecodeScheduler:
                                 - compile_s)}
             if req.span is not None:
                 req.span.set_attribute("ttft_ms", round(ttft * 1000, 3))
+                req.span.set_attribute(
+                    "ttft_breakdown_ms",
+                    {k: round(v * 1000, 3)
+                     for k, v in req.ttft_breakdown.items()})
         req.tokens.append(tok)
         seq.last_token = tok
         if req.eos_id is not None and tok == req.eos_id:

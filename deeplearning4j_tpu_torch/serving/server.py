@@ -19,11 +19,28 @@ Endpoints:
                    {...}} when decode is enabled}
   GET  /livez     200 {"live": true} while the batcher loop is up
   GET  /readyz    200 {"ready": true} when the replica should be admitted
-                  traffic; 503 + the gating reasons otherwise
+                  traffic; 503 + the gating reasons (draining, warming,
+                  model_swap, stopped, breaker_open) otherwise
   GET  /metrics   Prometheus text exposition of this server's registry
-
-``/profile``, ``/model`` and the ``/debug/*`` endpoints (with the
-request timelines they render) come with later slices.
+  GET  /debug/flightrecorder
+                  the process flight recorder's event ring as JSON
+  GET  /debug/timeline
+                  per-request decode timelines and every trace of this
+                  server's tracer (util/timeline.py), nested by
+                  parentage; ?trace_id= filters to one trace
+  GET  /debug/health
+                  training-health telemetry (util/health.py): latest
+                  rule report, stats snapshot, NaN attribution
+  POST /profile?seconds=N
+                  a torch.profiler capture (host operators, and the
+                  card's kernels when there is one) for N seconds
+                  (default 1, max 300) into a fresh run directory;
+                  returns {"dir": ...}; 409 while one is in progress
+  POST /model     {"path": "/path/to/model.zip"}: swap the served model
+                  from a checkpoint zip, loaded onto this server's
+                  device; 409 + Retry-After while generative sequences
+                  are in flight, fenced to a decode step boundary
+                  otherwise
 
 Design: requests land in a bounded queue; a batcher thread coalesces up to
 ``max_batch`` examples (waiting at most ``batch_timeout_ms`` after the
@@ -46,13 +63,12 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional, Tuple
-from urllib.parse import urlparse
+from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 import torch
 
 from .. import dtypes as _dtypes
-from ..nn.conf.layers import NotYetPorted
 from ..util import faults as _faults
 from ..util import metrics as _metrics
 from ..util import tracing as _tracing
@@ -123,7 +139,11 @@ class InferenceServer:
     engine and scheduler settings to build one over this model and this
     server's registry. Built engines turn the prefix cache on unless the
     dict says ``prefix_cache=False``, and warm their dispatch ladder
-    before the server starts."""
+    before the server starts — or, with ``warmup_background=True`` (fleet
+    replicas), after it: the server answers at once with ready=false
+    (reason ``warming``) while a thread builds the ladder under the
+    scheduler's step lock, so ticks and the ``set_model`` fence queue
+    behind it."""
 
     def __init__(self, model, port: int = 0, *, max_batch: int = 64,
                  batch_timeout_ms: float = 5.0,
@@ -135,10 +155,6 @@ class InferenceServer:
                  registry: Optional[_metrics.MetricsRegistry] = None,
                  tracer=None, decode=None, device="cuda",
                  warmup_background: bool = False):
-        if warmup_background:
-            raise NotYetPorted("warmup_background (the fleet's replica "
-                               "start-up) is not yet ported to the "
-                               "PyTorch package")
         self.device = _dtypes.resolve_device(device)
         self._model = model
         self.max_batch = int(max_batch)
@@ -156,11 +172,16 @@ class InferenceServer:
             failure_threshold=3, reset_timeout_s=5.0, clock=clock,
             name="serving-model")
         self._chain_breaker_hook()
+        # readiness (distinct from liveness): warming, swapping and
+        # draining each gate admission without the process being unhealthy
+        self._warming = False
+        self._swapping = False
         self._model_generation = 0
         self._model_digest: Optional[str] = None
         self.decode = None
         if decode is not None:
-            self.decode = self._build_decode(decode, model, clock, tracer)
+            self.decode = self._build_decode(decode, model, clock, tracer,
+                                             warmup_background)
         self._queue: "queue.Queue[_Pending]" = queue.Queue(
             maxsize=int(max_queue))
         self._lock = threading.Lock()
@@ -200,7 +221,8 @@ class InferenceServer:
                 self.wfile.write(body)
 
             def do_GET(self):
-                path = urlparse(self.path).path
+                url = urlparse(self.path)
+                path = url.path
                 if path == "/healthz":
                     self._json(outer._health())
                 elif path == "/livez":
@@ -213,16 +235,27 @@ class InferenceServer:
                 elif path == "/metrics":
                     _metrics.write_exposition(self, outer.registry)
                     outer._m_responses.inc(code="200")
-                elif path.startswith("/debug/"):
-                    self._json({"error": f"{path}: request timelines and "
-                                         "the /debug endpoints are not yet "
-                                         "ported to the PyTorch package"},
-                               501)
+                elif path == "/debug/flightrecorder":
+                    from ..util import flightrecorder as _flight
+                    self._json({"events": _flight.jsonable_events()})
+                elif path == "/debug/timeline":
+                    self._json(outer._timeline(
+                        parse_qs(url.query).get("trace_id", [None])[0]))
+                elif path == "/debug/health":
+                    from ..util import health as _health
+                    # repr odd values: a debug page must not 500
+                    self._json(json.loads(json.dumps(
+                        _health.debug_payload(), default=repr)))
                 else:
                     self._json({"error": "not found"}, 404)
 
             def do_POST(self):
                 url = urlparse(self.path)
+                if url.path == "/profile":
+                    # parameters ride the query string, no body
+                    from ..util.profiling import profile_request
+                    self._json(*profile_request(parse_qs(url.query)))
+                    return
                 try:
                     length = int(self.headers.get("Content-Length", "0"))
                     payload = json.loads(self.rfile.read(length).decode())
@@ -238,6 +271,18 @@ class InferenceServer:
                     if tp is not None:
                         headers["traceparent"] = tp
                     self._json(body, code, headers)
+                    return
+                if url.path == "/model":
+                    try:
+                        outer.swap_model_from(payload["path"])
+                        self._json({"ok": True})
+                    except ModelSwapRefused as e:
+                        # retriable: drain the in-flight decodes and POST
+                        # again
+                        self._json({"error": str(e)}, 409,
+                                   {"Retry-After": "1"})
+                    except Exception as e:
+                        self._json({"error": str(e)}, 400)
                     return
                 if url.path != "/predict":
                     self._json({"error": "not found"}, 404)
@@ -265,7 +310,7 @@ class InferenceServer:
             target=self._httpd.serve_forever, daemon=True)
         self._serve_thread.start()
 
-    def _build_decode(self, decode, model, clock, tracer):
+    def _build_decode(self, decode, model, clock, tracer, background):
         from .decode import DecodeScheduler, PagedDecodeEngine
         if isinstance(decode, DecodeScheduler):
             return decode
@@ -277,11 +322,25 @@ class InferenceServer:
         # engines (traffic repeats system prompts)
         cfg.setdefault("prefix_cache", True)
         engine = PagedDecodeEngine(model, registry=self.registry, **cfg)
-        # the ladder runs before the loop starts: server start pays the
-        # first-dispatch costs, not the first live requests
-        engine.warmup()
-        return DecodeScheduler(engine, clock=clock, registry=self.registry,
-                               tracer=tracer, **sched_kw)
+        if not background:
+            # the ladder runs before the loop starts: server start pays
+            # the first-dispatch costs, not the first live requests
+            engine.warmup()
+        sched = DecodeScheduler(engine, clock=clock, registry=self.registry,
+                                tracer=tracer, **sched_kw)
+        if background:
+            self._warming = True
+
+            def warm():
+                try:
+                    with sched._dispatch_lock:
+                        engine.warmup()
+                finally:
+                    self._warming = False
+
+            threading.Thread(target=warm, daemon=True,
+                             name="serving-warmup").start()
+        return sched
 
     # ------------------------------------------------------------------
     # metrics
@@ -318,18 +377,11 @@ class InferenceServer:
         self._m_breaker_state = reg.gauge(
             "serving_breaker_state",
             "Model circuit breaker state (0=closed, 1=half_open, 2=open)")
-        device_memory = reg.gauge(
-            "device_memory_bytes",
-            "CUDA memory held by tensors on the server's device, sampled "
-            "at exposition time (kind: in_use/peak)", ("device", "kind"))
-        if self.device.type == "cuda":
-            label = str(self.device)
-            device_memory.set_function(
-                lambda: float(torch.cuda.memory_allocated(self.device)),
-                device=label, kind="in_use")
-            device_memory.set_function(
-                lambda: float(torch.cuda.max_memory_allocated(self.device)),
-                device=label, kind="peak")
+        # device memory next to the serving numbers it explains
+        from ..util import profiling as _profiling
+        _profiling.register_device_memory_gauges(reg)
+        # POST /profile runs on a handler thread
+        _profiling.prime_profiler()
 
     def _chain_breaker_hook(self) -> None:
         """Record breaker transitions into this server's registry, on top
@@ -369,8 +421,12 @@ class InferenceServer:
     def readiness_reasons(self) -> List[str]:
         """Why this replica should NOT be admitted traffic (empty = ready)."""
         reasons = []
+        if self._warming:
+            reasons.append("warming")
         if self._draining:
             reasons.append("draining")
+        if self._swapping:
+            reasons.append("model_swap")
         if self._stop.is_set():
             reasons.append("stopped")
         if self.breaker.state == "open":
@@ -432,6 +488,22 @@ class InferenceServer:
                     "kv_dtype": eng.arena.kv_dtype or "fp",
                 }
         return h
+
+    def _timeline(self, trace_id: Optional[str]) -> dict:
+        """The ``GET /debug/timeline`` body: request timelines and trace
+        summaries from this server's tracer (a prebuilt scheduler's own
+        tracer, else the process default), odd attribute values repr'd."""
+        from ..util import timeline as _timeline
+        tracer = self.tracer
+        if tracer is None and self.decode is not None:
+            tracer = self.decode.tracer
+        if tracer is None:
+            tracer = _tracing.TRACER
+        payload = {"requests": _timeline.request_timelines(
+                       tracer, trace_id=trace_id),
+                   "traces": _timeline.trace_summaries(
+                       tracer, trace_id=trace_id)}
+        return json.loads(json.dumps(payload, default=repr))
 
     # ------------------------------------------------------------------
     # generate
@@ -677,14 +749,20 @@ class InferenceServer:
         are in flight: their K/V pages hold the old model's activations.
         Drain first."""
         if self.decode is not None:
-            with self.decode.fence() as in_flight:
-                if in_flight:
-                    raise ModelSwapRefused(
-                        f"refusing model swap: {in_flight} generative "
-                        "sequence(s) in flight — drain() first")
-                self.decode.engine.swap_net(model)
-                with self._lock:
-                    self._model = model
+            # not ready for the whole fence: a router stops sending before
+            # the swap instead of bouncing off ModelSwapRefused
+            self._swapping = True
+            try:
+                with self.decode.fence() as in_flight:
+                    if in_flight:
+                        raise ModelSwapRefused(
+                            f"refusing model swap: {in_flight} generative "
+                            "sequence(s) in flight — drain() first")
+                    self.decode.engine.swap_net(model)
+                    with self._lock:
+                        self._model = model
+            finally:
+                self._swapping = False
             self._model_digest = None
             self._model_generation += 1
             return
@@ -692,6 +770,12 @@ class InferenceServer:
             self._model = model
         self._model_digest = None
         self._model_generation += 1
+
+    def swap_model_from(self, path: str) -> None:
+        """Load a checkpoint zip (``util.serialization``) onto this
+        server's device and serve it."""
+        from ..util.serialization import load_model
+        self.set_model(load_model(path, device=self.device))
 
     def drain(self, timeout: float = 30.0) -> bool:
         """Stop admitting new work (predicts and generates answer 503) and
@@ -726,13 +810,15 @@ class InferenceServer:
         return drained
 
     def _in_flight_decodes(self) -> List[dict]:
-        """The generative requests still active (lane and progress), for
-        the ``serving_drain_timeout`` event."""
+        """The generative requests still active (lane, progress and trace
+        id), for the ``serving_drain_timeout`` event."""
         if self.decode is None:
             return []
         return [{"lane": seq.lane, "prompt_len": len(seq.req.prompt),
                  "generated": len(seq.req.tokens),
-                 "max_new_tokens": seq.req.max_new_tokens}
+                 "max_new_tokens": seq.req.max_new_tokens,
+                 "trace_id": (seq.req.span.trace_id
+                              if seq.req.span is not None else None)}
                 for seq in list(self.decode._active.values())]
 
     def stop(self, drain: bool = True, timeout: float = 30.0) -> None:

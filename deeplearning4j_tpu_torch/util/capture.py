@@ -17,7 +17,9 @@ static output tensors and a :meth:`GraphEntry.run`:
   warm-up iterations on a side stream, then captures on that stream with
   ``capture_error_mode="thread_local"`` (another thread's unrelated CUDA
   work does not invalidate the capture) into one memory pool shared by
-  every graph of the cache (``torch.cuda.graph_pool_handle()``). The
+  every graph of the cache (``torch.cuda.graph_pool_handle()``), under
+  ``util/profiling.py``'s guard (no capture while a profile is open or
+  another engine captures). The
   graphs are replayed one at a time on one stream and each dispatch reads
   its outputs before the next replay, which is what sharing a pool needs;
 - on the CPU, ``run()`` calls the same step function eagerly on the
@@ -53,6 +55,7 @@ import torch
 
 from . import flightrecorder as _flight
 from . import metrics as _metrics
+from . import profiling as _profiling
 
 __all__ = ["GraphCache", "GraphEntry", "CaptureError",
            "retrace_counter", "compile_seconds_histogram"]
@@ -190,12 +193,17 @@ class GraphCache:
                   for k, v in placeholders.items()}
         staging = ({k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
                     for k, v in inputs.items()} if cuda else {})
-        graph = None
+        graph, waited = None, 0.0
         if cuda and not self._eager_cuda:
-            graph, outputs = self._capture(name, fn, inputs)
+            # never while a profile is open, never beside another capture;
+            # the wait for the guard is not the build's wall
+            t_wait = time.perf_counter()
+            with _profiling.graph_capture_guard():
+                waited = time.perf_counter() - t_wait
+                graph, outputs = self._capture(name, fn, inputs)
         else:
             outputs = tuple(o.clone() for o in _as_tuple(fn(**inputs)))
-        dt = time.perf_counter() - t0
+        dt = time.perf_counter() - t0 - waited
         self._m_builds.inc(fn=name)
         self._m_build_s.observe(dt, fn=name)
         _flight.record("compile", fn=name, compile_seconds=round(dt, 4),

@@ -26,6 +26,7 @@ within 8e-3 (see ``BF16_LAYER_TOL`` and ``BF16_PROB_TOL``).
 
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 import warnings as _warnings
@@ -57,7 +58,6 @@ from deeplearning4j_tpu_torch.models.transformer import (generate,
                                                          oracle_stream_probs)
 from deeplearning4j_tpu_torch.nn.conf import attention as t_attention
 from deeplearning4j_tpu_torch.nn.conf.attention import SelfAttentionLayer
-from deeplearning4j_tpu_torch.nn.conf.layers import NotYetPorted
 from deeplearning4j_tpu_torch.nn.graph_runtime import ComputationGraph
 from deeplearning4j_tpu_torch.ops import paged_attention as t_paged
 from deeplearning4j_tpu_torch.serving import InferenceServer, ModelSwapRefused
@@ -1304,18 +1304,27 @@ class TestGenerateHTTP:
 
     def test_timelines_and_fleet_start_up_not_yet_ported(self, oracle_net,
                                                          server):
-        """Request timelines (/debug/*) answer 501 by name; the fleet's
-        background warm-up raises NotYetPorted."""
+        """Request timelines (/debug/timeline) answer with the server's
+        request spans, and the fleet's background warm-up starts a server
+        that reports ready=false (warming) until its ladder is built.
+        (The name dates from when both were stubs.)"""
+        body = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{server.port}/debug/timeline",
+            timeout=5).read())
+        assert set(body) == {"requests", "traces"}
+        warm = InferenceServer(oracle_net, port=0, device="cpu",
+                               decode={"max_batch": 2, "page_size": PS,
+                                       "pages_per_seq": 4,
+                                       "prefill_chunk": 4},
+                               warmup_background=True)
         try:
-            urllib.request.urlopen(f"http://127.0.0.1:{server.port}"
-                                   "/debug/timeline", timeout=5)
-            raise AssertionError("/debug/timeline answered")
-        except urllib.error.HTTPError as e:
-            assert e.code == 501
-            assert "request timelines" in json.loads(e.read())["error"]
-        with pytest.raises(NotYetPorted, match="fleet"):
-            InferenceServer(oracle_net, port=0, device="cpu",
-                            warmup_background=True)
+            deadline = time.monotonic() + 60
+            while not warm.ready and time.monotonic() < deadline:
+                assert warm.readiness_reasons() == ["warming"]
+                time.sleep(0.01)
+            assert warm.ready
+        finally:
+            warm.stop(drain=False)
 
     def test_without_decode_generate_is_400(self, oracle_net):
         server = InferenceServer(oracle_net, port=0, device="cpu")

@@ -311,9 +311,12 @@ def test_unported_training_options_raise(tmp_path):
         edit(net.conf)
         with pytest.raises(NotYetPorted, match=match):
             net.fit_batch(x, y)
-    with pytest.raises(NotYetPorted, match="listeners"):
-        net.set_listeners(object())
-    net.set_listeners()          # none: nothing to refuse
+    # listeners are ported: set, then cleared
+    listener = object()
+    net.set_listeners(listener)
+    assert net.listeners == [listener]
+    net.set_listeners()
+    assert net.listeners == []
 
 
 def test_output_after_training_uses_the_trained_weights(tmp_path):
