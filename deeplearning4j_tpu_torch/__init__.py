@@ -13,14 +13,17 @@ passes ``device="cpu"``; without a card they raise instead of falling back.
 
 Ported so far: the transformer-LM flagship from configuration through
 training, decode and the serving tier (the HTTP front, the fleet and the
-training-health telemetry).
+training-health telemetry); the list DSL and ``MultiLayerNetwork``, the
+convolutional, normalisation and recurrent layers, the classic zoo
+(LeNet-5, ResNet, char-RNN, AlexNet, VGG-16), classification evaluation
+and gradient checking.
 """
 
 __version__ = "0.1.0"
 
 # Lazy module surface: keep `import deeplearning4j_tpu_torch` light.
 _SUBMODULES = {"nn", "models", "ops", "optimize", "parallel", "serving",
-               "util", "dtypes"}
+               "util", "dtypes", "eval", "losses", "gradientcheck"}
 
 
 def __getattr__(name):

@@ -5,6 +5,8 @@ from .inputs import InputType
 from .builders import NeuralNetConfiguration
 from .graph import ComputationGraphConfiguration
 from .layers import NotYetPorted
+from .multi_layer import MultiLayerConfiguration
 
 __all__ = ["InputType", "NeuralNetConfiguration",
-           "ComputationGraphConfiguration", "NotYetPorted"]
+           "ComputationGraphConfiguration", "MultiLayerConfiguration",
+           "NotYetPorted"]

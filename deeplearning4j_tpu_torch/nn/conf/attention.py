@@ -29,6 +29,7 @@ from ... import dtypes as _dtypes
 from ..weights import init_weights
 from .inputs import InputType
 from .layers import Layer, _full, register_layer
+from .preprocessors import CnnToRnnPreProcessor, FeedForwardToRnnPreProcessor
 
 
 @register_layer("self_attention")
@@ -68,9 +69,11 @@ class SelfAttentionLayer(Layer):
 
     def preprocessor_for(self, input_type: InputType):
         if input_type.kind == "feedforward":
-            return "FeedForwardToRnnPreProcessor"
+            return FeedForwardToRnnPreProcessor()
         if input_type.kind == "convolutional":
-            return "CnnToRnnPreProcessor"
+            return CnnToRnnPreProcessor(height=input_type.height,
+                                        width=input_type.width,
+                                        channels=input_type.channels)
         return None
 
     def param_shapes(self, policy=None) -> Dict[str, Tuple[int, ...]]:
@@ -199,10 +202,12 @@ class SelfAttentionLayer(Layer):
                               attention_scale(f // self.n_heads, xc.dtype))
         return self._project_out(params, att), k_pool, v_pool
 
-    def apply(self, params, x, *, state=None, mask=None, policy=None):
+    def apply(self, params, x, *, state=None, train=False, generator=None,
+              mask=None, policy=None):
         from ...ops.attention import dot_product_attention
         policy = policy or _dtypes.FLOAT32
-        if (mask is None and self.max_cache_t is not None
+        x = self._dropout_in(x, train, generator)
+        if (not train and mask is None and self.max_cache_t is not None
                 and state is not None and "h" in state):
             # streaming decode with the carried K/V cache (rnn_time_step)
             return self._apply_streaming(params, policy.cast_to_compute(x),

@@ -1,9 +1,9 @@
 """ComputationGraph configuration: a DAG of named vertices (counterpart of
 the JAX package's ``nn/conf/graph.py``; the same JSON).
 
-This slice ports the vertices the transformer uses — ``LayerVertex`` and
-``ElementWiseVertex`` — and no preprocessors. Any other vertex type, or a
-non-null preprocessor, in a configuration raises :class:`NotYetPorted`.
+The port has the vertices the transformer and ResNet use —
+``LayerVertex`` (with its input preprocessor) and ``ElementWiseVertex``.
+Any other vertex type in a configuration raises :class:`NotYetPorted`.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 
 from .inputs import InputType
 from .layers import Layer, NotYetPorted, layer_from_dict, layer_to_dict
+from .preprocessors import InputPreProcessor, preprocessor_from_dict
 from .training import TrainingConfig
 
 # register the layer types the graph JSON may name
@@ -40,6 +41,8 @@ def vertex_to_dict(v: "GraphVertex") -> dict:
         val = getattr(v, f.name)
         if isinstance(val, Layer):
             val = {"__layer__": layer_to_dict(val)}
+        elif isinstance(val, InputPreProcessor):
+            val = {"__preprocessor__": val.to_dict()}
         elif isinstance(val, tuple):
             val = list(val)
         d[f.name] = val
@@ -61,10 +64,7 @@ def vertex_from_dict(d: dict) -> "GraphVertex":
         if isinstance(v, dict) and "__layer__" in v:
             v = layer_from_dict(v["__layer__"])
         elif isinstance(v, dict) and "__preprocessor__" in v:
-            raise NotYetPorted(
-                "input preprocessor "
-                f"{v['__preprocessor__'].get('type', '?')!r} is not yet "
-                "ported to the PyTorch package")
+            v = preprocessor_from_dict(v["__preprocessor__"])
         elif isinstance(v, list):
             v = tuple(v)
         kwargs[k] = v
@@ -88,6 +88,9 @@ class GraphVertex:
     def param_shapes(self, policy=None) -> Dict[str, Tuple[int, ...]]:
         return {}
 
+    def init_state(self, policy=None, device="cpu") -> Dict[str, Any]:
+        return {}
+
     def output_type(self, input_types: List[InputType]) -> InputType:
         raise NotImplementedError
 
@@ -95,7 +98,8 @@ class GraphVertex:
         pass
 
     def apply(self, params, xs: List[torch.Tensor], *, state=None,
-              policy=None, masks=None, train=False):
+              policy=None, masks=None, train=False, generator=None,
+              minibatch=None):
         raise NotImplementedError
 
     def output_mask(self, masks: Optional[List[Optional[torch.Tensor]]]):
@@ -109,39 +113,44 @@ class GraphVertex:
 @register_vertex("layer")
 @dataclasses.dataclass
 class LayerVertex(GraphVertex):
-    """Wraps a Layer config as a single-input vertex. ``preprocessor`` is
-    kept for the JSON; the port has no preprocessors yet, so it is None."""
+    """Wraps a Layer config (and its optional input preprocessor) as a
+    single-input vertex."""
 
     layer: Layer = None
-    preprocessor: Optional[Any] = None
-
-    def __post_init__(self):
-        if self.preprocessor is not None:
-            raise NotYetPorted("input preprocessors are not yet ported to "
-                               "the PyTorch package")
+    preprocessor: Optional[InputPreProcessor] = None
 
     def init_params(self, gen, policy=None, device="cpu"):
         return self.layer.init_params(gen, policy, device)
 
+    def init_state(self, policy=None, device="cpu"):
+        return self.layer.init_state(policy, device)
+
     def param_shapes(self, policy=None):
         return self.layer.param_shapes(policy)
 
+    def _in_type(self, input_types):
+        it = input_types[0]
+        return (it if self.preprocessor is None
+                else self.preprocessor.output_type(it))
+
     def output_type(self, input_types):
-        return self.layer.output_type(input_types[0])
+        return self.layer.output_type(self._in_type(input_types))
 
     def set_n_in(self, input_types, override=False):
-        self.layer.set_n_in(input_types[0], override)
+        self.layer.set_n_in(self._in_type(input_types), override)
 
     def apply(self, params, xs, *, state=None, policy=None, masks=None,
-              train=False):
-        if train and (self.layer.dropout or 0.0) > 0.0:
-            raise NotYetPorted(
-                f"training a {type(self.layer).__name__} with dropout="
-                f"{self.layer.dropout}: dropout is not yet ported to the "
-                "PyTorch package")
-        return self.layer.apply(params, xs[0], state=state,
-                                mask=masks[0] if masks else None,
-                                policy=policy)
+              train=False, generator=None, minibatch=None):
+        x = xs[0]
+        mask = masks[0] if masks else None
+        if self.preprocessor is not None:
+            # the NETWORK minibatch: time-flattened inputs arrive as
+            # [b*t, f] and FeedForwardToRnn rebuilds [b, t, f]
+            mb = minibatch if minibatch is not None else x.shape[0]
+            x = self.preprocessor(x, minibatch_size=mb)
+            mask = self.preprocessor.transform_mask(mask, minibatch_size=mb)
+        return self.layer.apply(params, x, state=state, train=train,
+                                generator=generator, mask=mask, policy=policy)
 
 
 @register_vertex("elementwise")
@@ -156,7 +165,7 @@ class ElementWiseVertex(GraphVertex):
         return input_types[0]
 
     def apply(self, params, xs, *, state=None, policy=None, masks=None,
-              train=False):
+              train=False, generator=None, minibatch=None):
         op = self.op.lower()
         if op == "add":
             out = xs[0]
@@ -239,6 +248,20 @@ class ComputationGraphConfiguration:
                 raise ValueError(f"vertex {name!r} has no inputs")
         self.topological_order()
 
+    def infer_shapes(self) -> Dict[str, InputType]:
+        """The output type of every vertex (and network input), inferring
+        nIn along the way; empty without ``input_types``."""
+        if self.input_types is None:
+            return {}
+        types: Dict[str, InputType] = dict(
+            zip(self.network_inputs, self.input_types))
+        for name in self.topological_order():
+            v = self.vertices[name]
+            in_types = [types[i] for i in self.vertex_inputs[name]]
+            v.set_n_in(in_types, override=False)
+            types[name] = v.output_type(in_types)
+        return types
+
     def to_dict(self) -> dict:
         return {
             "format_version": 1,
@@ -296,9 +319,13 @@ class GraphBuilder:
         self._inputs.extend(names)
         return self
 
-    def add_layer(self, name: str, layer: Layer, *inputs: str) -> "GraphBuilder":
+    def add_layer(self, name: str, layer: Layer, *inputs: str,
+                  preprocessor: Optional[InputPreProcessor] = None
+                  ) -> "GraphBuilder":
         layer = self._base._apply_defaults(layer)
-        return self.add_vertex(name, LayerVertex(layer=layer), *inputs)
+        return self.add_vertex(
+            name, LayerVertex(layer=layer, preprocessor=preprocessor),
+            *inputs)
 
     def add_vertex(self, name: str, vertex: GraphVertex,
                    *inputs: str) -> "GraphBuilder":
@@ -328,21 +355,15 @@ class GraphBuilder:
             input_types=self._input_types,
         )
         conf.validate()
-        # infer nIn along the DAG; where the reference would insert an
-        # input preprocessor, refuse (none is ported yet)
+        # insert input preprocessors and infer nIn along the DAG
         if conf.input_types is not None:
             types: Dict[str, InputType] = dict(
                 zip(conf.network_inputs, conf.input_types))
             for name in conf.topological_order():
                 v = conf.vertices[name]
                 in_types = [types[i] for i in conf.vertex_inputs[name]]
-                if isinstance(v, LayerVertex):
-                    needed = v.layer.preprocessor_for(in_types[0])
-                    if needed is not None:
-                        raise NotYetPorted(
-                            f"vertex {name!r} needs a {needed}, and input "
-                            "preprocessors are not yet ported to the "
-                            "PyTorch package")
+                if isinstance(v, LayerVertex) and v.preprocessor is None:
+                    v.preprocessor = v.layer.preprocessor_for(in_types[0])
                 v.set_n_in(in_types, override=False)
                 types[name] = v.output_type(in_types)
         return conf

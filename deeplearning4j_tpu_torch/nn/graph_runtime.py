@@ -12,13 +12,17 @@ its gradients (torch autograd in place of ``jax.grad``), gradient
 normalization, the updater's deltas, and the parameters updated in place.
 ``fit_batch`` takes one step, ``fit_repeated`` K steps on one batch and
 ``fit_scan`` one step on each of K staged batches; the losses stay on the
-device. Listeners fire at the reference's points, with the loss as a
-``LazyScore`` (``fit_repeated``/``fit_scan`` read their K losses in one
-transfer first, as the reference replays them). With
+device. Layer state (BatchNormalization's running statistics) is created
+with the parameters, read by every forward and persisted after each
+training step; ``output()`` never touches it. Dropout draws from a
+``torch.Generator`` on the net's device, seeded from the configuration's
+seed and the update count. Listeners fire at the reference's points,
+with the loss as a ``LazyScore`` (``fit_repeated``/``fit_scan`` read
+their K losses in one transfer first, as the reference replays them). With
 ``enable_health_stats()`` the step also reduces the per-layer health
 stats (``util/health.py``) beside its update, from the same gradients
 and deltas; ``fit_repeated``/``fit_scan`` keep the last step's. Truncated
-BPTT, gradient checkpointing and dropout are not yet ported and raise
+BPTT and gradient checkpointing are not yet ported and raise
 ``NotYetPorted``.
 
 Streaming inference (``rnn_time_step``) carries each attention layer's
@@ -29,7 +33,6 @@ cache's ``"pos"``).
 
 from __future__ import annotations
 
-import hashlib
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -42,17 +45,12 @@ from ..optimize.listeners import as_listener_score
 from ..util import health as _health
 from .conf.graph import ComputationGraphConfiguration, LayerVertex
 from .conf.layers import NotYetPorted
-from ..util.netutil import note_streamed_steps, precheck_streamed_steps
+from ..util.netutil import (named_generator, note_streamed_steps,
+                             precheck_streamed_steps)
 
 
 def _as_list(v) -> list:
     return list(v) if isinstance(v, (list, tuple)) else [v]
-
-
-def _vertex_seed(seed: int, name: str) -> int:
-    """Stable 63-bit generator seed per (network seed, vertex name)."""
-    digest = hashlib.blake2s(f"{seed}/{name}".encode(), digest_size=8).digest()
-    return int.from_bytes(digest, "big") >> 1
 
 
 class ComputationGraph(torch.nn.Module):
@@ -77,8 +75,9 @@ class ComputationGraph(torch.nn.Module):
                                  "parameters (empty or contains '.')")
         self.vertex_params = torch.nn.ModuleDict()
         self._has_params = False
-        self.state: Dict[str, Dict[str, torch.Tensor]] = {
-            n: {} for n in self.topo_order}
+        self.state: Dict[str, Dict[str, torch.Tensor]] = self._init_state()
+        self._persistent_keys = {n: tuple(st) for n, st in self.state.items()
+                                 if st}
         # the optimizer state: the reference's tree, f32, on self.device
         self.updater_state: Optional[Dict[str, Any]] = None
         self._updater: Optional[_updaters.Updater] = None
@@ -100,6 +99,27 @@ class ComputationGraph(torch.nn.Module):
     def _vertex_layer(self, name: str):
         v = self.conf.vertices[name]
         return v.layer if isinstance(v, LayerVertex) else None
+
+    def _init_state(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        return {n: self.conf.vertices[n].init_state(self.policy, self.device)
+                for n in self.topo_order}
+
+    def _persist_states(self, new_states) -> None:
+        """Keep the persistent (``init_state``-declared) entries of a
+        training step's new vertex states, e.g. BN running statistics."""
+        for name, keys in self._persistent_keys.items():
+            st = new_states.get(name) or {}
+            if any(k in st for k in keys):
+                self.state[name] = {k: st[k].detach() for k in keys
+                                    if k in st}
+
+    def _generator(self, name: str) -> Optional[torch.Generator]:
+        """The dropout generator of one step (None when nothing drops)."""
+        if not any((layer.dropout or 0.0) > 0.0
+                   for layer in map(self._vertex_layer, self.topo_order)
+                   if layer is not None):
+            return None
+        return named_generator(self.device, self.conf.training.seed, name)
 
     # ------------------------------------------------------------------
     # parameters
@@ -145,13 +165,12 @@ class ComputationGraph(torch.nn.Module):
         from the configured seed (the same schemes and distributions as the
         reference, not the same numbers)."""
         seed = self.conf.training.seed if seed is None else seed
-        gen = torch.Generator(device="cpu")
         tree = {}
         for name in self.topo_order:
-            gen.manual_seed(_vertex_seed(seed, name))
             tree[name] = self.conf.vertices[name].init_params(
-                gen, self.policy, self.device)
+                named_generator("cpu", seed, name), self.policy, self.device)
         self.set_params(tree)
+        self.state = self._init_state()
         self.init_updater()
         return self
 
@@ -208,37 +227,46 @@ class ComputationGraph(torch.nn.Module):
         return params
 
     def _forward(self, inputs: List[torch.Tensor], masks=None, *,
-                 params=None) -> Dict[str, torch.Tensor]:
+                 params=None, train=False,
+                 generator=None) -> Dict[str, torch.Tensor]:
         """Walk the topo order; returns {vertex: activation}. ``masks``:
         one per network input (or None), propagated along the DAG by each
         vertex's ``output_mask``. (``output`` passes none, as in the
         reference.) ``params`` replaces the net's parameters (NaN
-        attribution replays a poisoned tree)."""
+        attribution replays a poisoned tree). ``train`` runs the train-mode
+        forward (dropout from ``generator``, BN batch statistics) without
+        touching the layer state."""
         params = self._require_params() if params is None else params
         acts: Dict[str, torch.Tensor] = dict(zip(self.conf.network_inputs,
                                                  inputs))
         mask_map = dict(zip(self.conf.network_inputs,
                             masks if masks is not None else [None] * len(inputs)))
+        minibatch = inputs[0].shape[0]
         for name in self.topo_order:
             v = self.conf.vertices[name]
             in_names = self.conf.vertex_inputs[name]
             in_masks = [mask_map.get(i) for i in in_names]
             out, _ = v.apply(params[name], [acts[i] for i in in_names],
                              state=self.state.get(name), policy=self.policy,
-                             masks=in_masks)
+                             masks=in_masks, minibatch=minibatch,
+                             train=train, generator=generator)
             acts[name] = out
             mask_map[name] = v.output_mask(in_masks)
         return acts
 
-    def output(self, *inputs):
+    def output(self, *inputs, train: bool = False):
         """Activations of the network outputs, computed under
         ``torch.inference_mode()``. Inputs may be numpy arrays or tensors;
-        returns one tensor when there is one output, else a list."""
+        returns one tensor when there is one output, else a list.
+        ``train=True`` runs the train-mode forward (dropout active, BN
+        batch statistics) without updating parameters or state."""
         inputs = [self._to_input(x) for x in _as_list(
             inputs[0] if len(inputs) == 1 and isinstance(inputs[0], (list, tuple))
             else list(inputs))]
+        gen = (self._generator(f"output_{self.iteration_count}")
+               if train else None)
         with torch.inference_mode():
-            acts = self._forward(inputs)
+            acts = self._forward(inputs, train=train, generator=gen)
         outs = [acts[n] for n in self.conf.network_outputs]
         return outs[0] if len(outs) == 1 else outs
 
@@ -254,6 +282,13 @@ class ComputationGraph(torch.nn.Module):
                 carry[name] = layer._zero_state(batch, self.policy,
                                                 self.device)
         return carry
+
+    def evaluate(self, data, labels=None):
+        """Classification :class:`~..eval.Evaluation` of ``output`` (one
+        input, one output) over an iterable of batches or (x, y)
+        arrays."""
+        from ..eval.evaluation import evaluate_network
+        return evaluate_network(self, data, labels)
 
     def rnn_time_step(self, *inputs):
         """Streaming inference: feed one (or a few) timesteps, carrying each
@@ -289,7 +324,8 @@ class ComputationGraph(torch.nn.Module):
                                   state=(carry if carry is not None
                                          else self.state.get(name)),
                                   policy=self.policy,
-                                  masks=[None] * len(in_names))
+                                  masks=[None] * len(in_names),
+                                  minibatch=inputs[0].shape[0])
                 if carry is not None:
                     self._rnn_state[name] = st
                 acts[name] = out
@@ -311,14 +347,16 @@ class ComputationGraph(torch.nn.Module):
     # ------------------------------------------------------------------
 
     def _loss_fn(self, inputs, labels, masks=None, *, params=None,
-                 collect_stats: Optional[_health.StatsConfig] = None):
+                 collect_stats: Optional[_health.StatsConfig] = None,
+                 generator=None, new_states: Optional[Dict] = None):
         """The training loss: every vertex but the output layers runs
-        forward (with ``train=True``); each output layer is scored from its
-        hidden input (``_output_score``); the l1/l2 penalty is added. The
-        reference's unsegmented walk. With ``collect_stats`` it returns
-        ``(loss, {vertex: act_moments})``, each vertex's activation
-        summarised (detached) as it is produced. ``params`` replaces the
-        net's parameters."""
+        forward (with ``train=True`` and the dropout ``generator``); each
+        output layer is scored from its hidden input (``_output_score``);
+        the l1/l2 penalty is added. The reference's unsegmented walk. With
+        ``collect_stats`` it returns ``(loss, {vertex: act_moments})``,
+        each vertex's activation summarised (detached) as it is produced.
+        ``params`` replaces the net's parameters; ``new_states``, a dict,
+        receives each vertex's new state (the caller persists it)."""
         if not self._output_layer_names:
             raise ValueError(
                 "no output vertex has a loss (need an output layer at a "
@@ -336,6 +374,7 @@ class ComputationGraph(torch.nn.Module):
         mask_map = dict(zip(self.conf.network_inputs,
                             masks if masks is not None else [None] * len(inputs)))
         label_map = dict(zip(self.conf.network_outputs, labels))
+        minibatch = inputs[0].shape[0]
         total = 0.0
         for name in self.topo_order:
             v = self.conf.vertices[name]
@@ -346,10 +385,13 @@ class ComputationGraph(torch.nn.Module):
                     params, name, acts[in_names[0]], label_map[name],
                     in_masks[0] if in_masks else None)
             if name not in out_set or name in consumed:
-                out, _ = v.apply(params[name], [acts[i] for i in in_names],
-                                 state=self.state.get(name),
-                                 policy=self.policy, masks=in_masks,
-                                 train=True)
+                out, st = v.apply(params[name], [acts[i] for i in in_names],
+                                  state=self.state.get(name),
+                                  policy=self.policy, masks=in_masks,
+                                  train=True, generator=generator,
+                                  minibatch=minibatch)
+                if new_states is not None:
+                    new_states[name] = st
                 acts[name] = out
                 mask_map[name] = v.output_mask(in_masks)
                 if collect_stats is not None:
@@ -466,14 +508,17 @@ class ComputationGraph(torch.nn.Module):
             raise NotYetPorted(f"{api}: truncated BPTT is not yet ported to "
                                "the PyTorch package")
 
-    def _loss_and_grads(self, inputs, labels, masks, collect_stats=None):
+    def _loss_and_grads(self, inputs, labels, masks, collect_stats=None,
+                        generator=None, new_states=None):
         """(loss, {vertex: {param: grad}}) — ``jax.value_and_grad`` of the
         reference's ``_loss_fn``, by torch autograd; with
-        ``collect_stats``, (loss, grads, activation stats)."""
+        ``collect_stats``, (loss, grads, activation stats). ``new_states``
+        receives the vertices' new states."""
         params = self._require_params()
         named = [(v, k, p) for v, ps in params.items() for k, p in ps.items()]
         out = self._loss_fn(inputs, labels, masks,
-                            collect_stats=collect_stats)
+                            collect_stats=collect_stats, generator=generator,
+                            new_states=new_states)
         loss, act_stats = out if collect_stats is not None else (out, None)
         gs = torch.autograd.grad(loss, [p for _, _, p in named],
                                  allow_unused=True)
@@ -494,12 +539,16 @@ class ComputationGraph(torch.nn.Module):
         if self._updater is None:
             self.init_updater()
         t = self.conf.training
+        gen = self._generator(f"update_{self._update_count}")
+        new_states: Dict[str, Any] = {}
         if stats is None:
-            loss, grads_raw = self._loss_and_grads(inputs, labels, masks)
+            loss, grads_raw = self._loss_and_grads(
+                inputs, labels, masks, generator=gen, new_states=new_states)
             act_stats = None
         else:
             loss, grads_raw, act_stats = self._loss_and_grads(
-                inputs, labels, masks, collect_stats=stats)
+                inputs, labels, masks, collect_stats=stats, generator=gen,
+                new_states=new_states)
         grads = _updaters.normalize_gradients(
             grads_raw, t.gradient_normalization,
             float(t.gradient_normalization_threshold))
@@ -508,6 +557,7 @@ class ComputationGraph(torch.nn.Module):
         params = self.params
         _updaters.apply_updates(params, deltas)
         self._update_count += 1
+        self._persist_states(new_states)
         if stats is None:
             return loss
         with torch.no_grad():

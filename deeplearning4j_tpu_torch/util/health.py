@@ -916,11 +916,18 @@ def attribute_nonfinite(net, x, y=None, mask=None, *, params=None,
                 for v in order}
 
     inputs = [net._to_input(a) for a in xs]
+    # a MultiLayerNetwork takes one input and names its layers layer_{i}
+    sequential = not hasattr(net.conf, "vertices")
     # eval-mode forward: a train-mode-only NaN source falls through to
     # the gradient stage
     try:
         with torch.inference_mode():
-            acts = net._forward(inputs, params=on_device(params))
+            if sequential:
+                seq, _ = net._forward(inputs[0], params=on_device(params),
+                                      collect=True)
+                acts = dict(zip(order, seq[1:]))
+            else:
+                acts = net._forward(inputs, params=on_device(params))
         for name in order:
             if not _all_finite(acts[name]):
                 return _finish("activation", layer=name)
@@ -937,7 +944,11 @@ def attribute_nonfinite(net, x, y=None, mask=None, *, params=None,
             ptree = on_device(params, grad=True)
             named = [(v, k, t) for v, ps in ptree.items()
                      for k, t in ps.items()]
-            loss = net._loss_fn(inputs, ys, ms, params=ptree)
+            loss = (net._loss_fn(inputs[0], ys[0],
+                                 None if ms is None else ms[0],
+                                 params=ptree)[0]
+                    if sequential else
+                    net._loss_fn(inputs, ys, ms, params=ptree))
             gs = torch.autograd.grad(loss, [t for _, _, t in named],
                                      allow_unused=True)
             grads: Dict[str, Dict[str, torch.Tensor]] = {v: {}

@@ -1,10 +1,27 @@
-"""Small shared predicates over network runtimes (counterpart of the JAX
-package's ``util/netutil.py``): the streaming K/V cache limits, the
-strict-mode refusal and the warn-once on overflow."""
+"""Small shared helpers of the network runtimes (counterpart of the JAX
+package's ``util/netutil.py``): the per-name generator seeds, the
+streaming K/V cache limits, the strict-mode refusal and the warn-once on
+overflow."""
 
 from __future__ import annotations
 
+import hashlib
 import warnings
+
+import torch
+
+
+def name_seed(seed: int, name: str) -> int:
+    """Stable 63-bit generator seed per (network seed, name)."""
+    digest = hashlib.blake2s(f"{seed}/{name}".encode(), digest_size=8).digest()
+    return int.from_bytes(digest, "big") >> 1
+
+
+def named_generator(device, seed: int, name: str) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded by :func:`name_seed`."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(name_seed(seed, name))
+    return gen
 
 
 class StreamingCacheOverflow(RuntimeError):
@@ -15,9 +32,10 @@ class StreamingCacheOverflow(RuntimeError):
 
 
 def _streaming_layers(net):
-    """The streaming-cached layers of a ComputationGraph (the port's one
-    runtime)."""
-    layers = (getattr(v, "layer", None) for v in net.conf.vertices.values())
+    """The streaming-cached layers of a ComputationGraph or a
+    MultiLayerNetwork."""
+    layers = (net.conf.layers if hasattr(net.conf, "layers") else
+              (getattr(v, "layer", None) for v in net.conf.vertices.values()))
     return [l for l in layers
             if l is not None and getattr(l, "max_cache_t", None) is not None]
 

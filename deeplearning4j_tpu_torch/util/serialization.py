@@ -8,7 +8,10 @@ The artifact is a zip holding ``configuration.json``, ``arrays.npz``
 (original dtype names of arrays stored widened to float32, e.g.
 ``bfloat16``) and ``checksums.json`` (sha256 of every other entry). A zip
 written by either package loads in the other, the optimizer state
-included, so training resumes across them.
+included, so training resumes across them. Both runtimes are covered:
+``ComputationGraph`` (keys by vertex name) and ``MultiLayerNetwork``
+(keys ``layer_{i}``, BatchNormalization's running statistics under
+``state/``).
 """
 
 from __future__ import annotations
@@ -93,14 +96,29 @@ def _tensor(a: np.ndarray, dtype_name=None) -> torch.Tensor:
     return t.to(_dtypes.torch_dtype(dtype_name)) if dtype_name else t
 
 
+_MODEL_CLASSES = ("ComputationGraph", "MultiLayerNetwork")
+
+
+def _network(conf, device):
+    """The runtime for a configuration: a ``MultiLayerNetwork`` over a
+    ``MultiLayerConfiguration``, else a ``ComputationGraph``."""
+    from ..nn.conf.multi_layer import MultiLayerConfiguration
+    if isinstance(conf, MultiLayerConfiguration):
+        from ..nn.multilayer import MultiLayerNetwork
+        return MultiLayerNetwork(conf, device=device)
+    from ..nn.graph_runtime import ComputationGraph
+    return ComputationGraph(conf, device=device)
+
+
 def params_from_numpy(conf, arrays: Dict[str, np.ndarray], *, device="cuda",
                       dtype_map=None):
-    """A :class:`ComputationGraph` over ``conf`` carrying the given
-    parameters: ``arrays`` maps ``params/<vertex>/<name>`` to numpy arrays,
-    as the JAX package's checkpoint stores them (other keys are ignored).
-    Every parameter the configuration declares must be present, with its
-    shape; anything else under ``params/`` is an error."""
-    from ..nn.graph_runtime import ComputationGraph
+    """A network over ``conf`` (a :class:`ComputationGraph`, or a
+    :class:`MultiLayerNetwork` for a ``MultiLayerConfiguration``) carrying
+    the given parameters: ``arrays`` maps ``params/<vertex or layer_i>/
+    <name>`` to numpy arrays, as the JAX package's checkpoint stores them
+    (other keys are ignored). Every parameter the configuration declares
+    must be present, with its shape; anything else under ``params/`` is an
+    error."""
     dtype_map = dtype_map or {}
     tree: Dict[str, Dict[str, torch.Tensor]] = {}
     for key, a in arrays.items():
@@ -110,23 +128,27 @@ def params_from_numpy(conf, arrays: Dict[str, np.ndarray], *, device="cuda",
         if len(parts) != 3:
             raise ValueError(f"unexpected parameter key {key!r}")
         tree.setdefault(parts[1], {})[parts[2]] = _tensor(a, dtype_map.get(key))
-    net = ComputationGraph(conf, device=device)
+    net = _network(conf, device)
     net.set_params(tree)
     return net
 
 
 def load_model(path: str, device="cuda"):
     """Load a checkpoint zip written by either package into a
-    :class:`ComputationGraph` on ``device`` (``"cuda"`` by default; pass
-    ``device="cpu"`` for the CPU)."""
+    :class:`ComputationGraph` or :class:`MultiLayerNetwork` (as its
+    ``training_state.json`` names) on ``device`` (``"cuda"`` by default;
+    pass ``device="cpu"`` for the CPU): parameters, layer state (BN running
+    statistics), the optimizer state and the counters."""
     from ..nn.conf.graph import ComputationGraphConfiguration
     from ..nn.conf.layers import NotYetPorted
+    from ..nn.conf.multi_layer import MultiLayerConfiguration
     config_json, arrays, training_state, dtype_map = _read(path)
     model_class = training_state.get("model_class")
-    if model_class != "ComputationGraph":
+    if model_class not in _MODEL_CLASSES:
         raise NotYetPorted(f"{path}: model class {model_class!r} is not yet "
                            "ported to the PyTorch package")
-    conf = ComputationGraphConfiguration.from_json(config_json)
+    conf = (MultiLayerConfiguration if model_class == "MultiLayerNetwork"
+            else ComputationGraphConfiguration).from_json(config_json)
     net = params_from_numpy(conf, arrays, device=device, dtype_map=dtype_map)
     for key, a in arrays.items():
         head, _, rest = key.partition("/")
@@ -209,7 +231,7 @@ def save_model(net, path: str, save_updater: bool = True) -> None:
     np.savez(buf, **arrays)
     training_state = {
         "format_version": _FORMAT_VERSION,
-        "model_class": "ComputationGraph",
+        "model_class": type(net).__name__,
         "iteration_count": net.iteration_count,
         "epoch_count": net.epoch_count,
         "update_count": net._update_count,

@@ -294,12 +294,13 @@ def test_resume_across_packages(tmp_path, first):
 
 def test_unported_training_options_raise(tmp_path):
     x, y = _batch()
-
-    def with_dropout(conf):
-        conf.vertices["blk0_ff1"].layer.dropout = 0.1
-
-    for edit, match in ((with_dropout, "dropout"),
-                        (lambda c: setattr(c.training,
+    # dropout is ported: a dropout layer trains, from the step's generator
+    net = ComputationGraph(transformer_lm(V, n_layers=1, d_model=D,
+                                          n_heads=H, d_ff=FF, input_ids=True),
+                           device="cpu").init()
+    net.conf.vertices["blk0_ff1"].layer.dropout = 0.1
+    assert np.isfinite(float(net.fit_batch(x, y)))
+    for edit, match in ((lambda c: setattr(c.training,
                                            "gradient_checkpointing", True),
                          "gradient_checkpointing"),
                         (lambda c: setattr(c, "backprop_type",

@@ -219,8 +219,8 @@ def test_unported_parts_raise_naming_them(tmp_path):
                        moe_experts=2)
     d = json.loads(j_transformer_lm(V, n_layers=1, d_model=D, n_heads=H,
                                     d_ff=FF, input_ids=True).to_json())
-    d["vertices"]["blk0_ff1"]["layer"]["__layer__"]["type"] = "dense"
-    with pytest.raises(NotYetPorted, match="'dense'"):
+    d["vertices"]["blk0_ff1"]["layer"]["__layer__"]["type"] = "auto_encoder"
+    with pytest.raises(NotYetPorted, match="'auto_encoder'"):
         ComputationGraphConfiguration.from_dict(d)
     d = json.loads(j_transformer_lm(V, n_layers=1, d_model=D, n_heads=H,
                                     d_ff=FF, input_ids=True).to_json())
