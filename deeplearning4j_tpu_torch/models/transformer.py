@@ -14,8 +14,10 @@ parity oracle of the serving engine), the host sampler ``sample_token``,
 ``paged_decode_forward`` (one forward over the paged K/V pools) and
 ``fused_decode_loop`` (N decode steps with on-device sampling and no host
 sync), and speculative decoding (``draft_transformer_lm``,
-``draft_decode_loop``, ``spec_verify``). The MoE variant (``moe_experts >
-0``) is not yet ported and raises ``NotYetPorted``.
+``draft_decode_loop``, ``spec_verify``). ``moe_experts > 0`` replaces
+every block's dense FFN with a top-k routed ``MoELayer`` (``{b}_moe``,
+``d_hidden = d_ff`` per expert, its load-balancing loss in the training
+objective), as the reference builds it.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ from ..nn.conf.builders import NeuralNetConfiguration
 from ..nn.conf.graph import ElementWiseVertex, LayerVertex
 from ..nn.conf.inputs import InputType
 from ..nn.conf.layers import (EmbeddingSequenceLayer, LayerNormalization,
-                              NotYetPorted, RnnOutputLayer)
+                              RnnOutputLayer)
+from ..nn.conf.moe import MoELayer
 from ..nn.conf.recurrent import TimeDistributedDenseLayer
 
 
@@ -46,9 +49,6 @@ def transformer_lm(vocab_size: int, *, n_layers: int = 4,
     if d_model % n_heads:
         raise ValueError(f"d_model={d_model} not divisible by "
                          f"n_heads={n_heads}")
-    if moe_experts > 0:
-        raise NotYetPorted("transformer_lm(moe_experts > 0): the MoE layer "
-                           "is not yet ported to the PyTorch package")
     gb = (NeuralNetConfiguration.builder()
           .seed(seed).updater(updater).learning_rate(learning_rate)
           .dtype(dtype)
@@ -75,16 +75,24 @@ def transformer_lm(vocab_size: int, *, n_layers: int = 4,
         gb.add_vertex(f"{b}_res1", ElementWiseVertex(op="add"),
                       prev, f"{b}_attn")
         gb.add_layer(f"{b}_ln2", LayerNormalization(), f"{b}_res1")
-        gb.add_layer(f"{b}_ff1",
-                     TimeDistributedDenseLayer(n_in=d_model, n_out=d_ff,
-                                               activation="relu"),
-                     f"{b}_ln2")
-        gb.add_layer(f"{b}_ff2",
-                     TimeDistributedDenseLayer(n_in=d_ff, n_out=d_model,
-                                               activation="identity"),
-                     f"{b}_ff1")
+        if moe_experts > 0:
+            gb.add_layer(f"{b}_moe",
+                         MoELayer(n_in=d_model, n_out=d_model, d_hidden=d_ff,
+                                  n_experts=moe_experts, top_k=moe_top_k),
+                         f"{b}_ln2")
+            ff_out = f"{b}_moe"
+        else:
+            gb.add_layer(f"{b}_ff1",
+                         TimeDistributedDenseLayer(n_in=d_model, n_out=d_ff,
+                                                   activation="relu"),
+                         f"{b}_ln2")
+            gb.add_layer(f"{b}_ff2",
+                         TimeDistributedDenseLayer(n_in=d_ff, n_out=d_model,
+                                                   activation="identity"),
+                         f"{b}_ff1")
+            ff_out = f"{b}_ff2"
         gb.add_vertex(f"{b}_res2", ElementWiseVertex(op="add"),
-                      f"{b}_res1", f"{b}_ff2")
+                      f"{b}_res1", ff_out)
         prev = f"{b}_res2"
     gb.add_layer("final_ln", LayerNormalization(), prev)
     gb.add_layer("out", RnnOutputLayer(

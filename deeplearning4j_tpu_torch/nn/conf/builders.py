@@ -104,9 +104,8 @@ class Builder:
         return self
 
     def gradient_checkpointing(self, flag: bool = True) -> "Builder":
-        """Rematerialize activations in the backward pass. The flag is
-        carried in the configuration; the port's runtimes raise
-        ``NotYetPorted`` when they train with it."""
+        """Rematerialize activations in the backward pass: both runtimes
+        train in checkpointed segments (``torch.utils.checkpoint``)."""
         self._t.gradient_checkpointing = bool(flag)
         return self
 

@@ -1,9 +1,15 @@
 """ComputationGraph configuration: a DAG of named vertices (counterpart of
-the JAX package's ``nn/conf/graph.py``; the same JSON).
+the JAX package's ``nn/conf/graph.py``; the same JSON and YAML).
 
-The port has the vertices the transformer and ResNet use —
-``LayerVertex`` (with its input preprocessor) and ``ElementWiseVertex``.
-Any other vertex type in a configuration raises :class:`NotYetPorted`.
+The reference's thirteen vertex types: ``LayerVertex`` (a layer and its
+input preprocessor), ``ElementWiseVertex``, ``MergeVertex``,
+``SubsetVertex``, ``StackVertex``, ``UnstackVertex``, ``ScaleVertex``,
+``ShiftVertex``, ``L2Vertex``, ``L2NormalizeVertex``,
+``PreprocessorVertex``, ``LastTimeStepVertex`` and
+``DuplicateToTimeSeriesVertex``. Each vertex maps its input activations
+to an output, its input masks to an output mask, and its inputs' example
+counts to its own (``output_minibatch``: Stack and Unstack change it).
+A type name no package registers raises :class:`NotYetPorted`.
 """
 
 from __future__ import annotations
@@ -17,11 +23,14 @@ import torch
 
 from .inputs import InputType
 from .layers import Layer, NotYetPorted, layer_from_dict, layer_to_dict
-from .preprocessors import InputPreProcessor, preprocessor_from_dict
+from .preprocessors import (InputPreProcessor, call_preprocessor,
+                            preprocessor_from_dict)
 from .training import TrainingConfig
 
 # register the layer types the graph JSON may name
 from . import attention as _attention  # noqa: F401
+from . import moe as _moe  # noqa: F401
+from . import pretrain as _pretrain  # noqa: F401
 from . import recurrent as _recurrent  # noqa: F401
 
 VERTEX_REGISTRY: Dict[str, Type["GraphVertex"]] = {}
@@ -102,12 +111,20 @@ class GraphVertex:
               minibatch=None):
         raise NotImplementedError
 
-    def output_mask(self, masks: Optional[List[Optional[torch.Tensor]]]):
-        """Propagate masks: the first non-None input mask."""
+    def output_mask(self, masks: Optional[List[Optional[torch.Tensor]]],
+                    minibatch: Optional[int] = None):
+        """Propagate masks: the first non-None input mask. ``minibatch`` is
+        the row count of this vertex's input activations."""
         for m in masks or ():
             if m is not None:
                 return m
         return None
+
+    def output_minibatch(self, in_mbs: List[int]) -> int:
+        """The example count of this vertex's output (time-flattened
+        activations have b·t rows, so the runtime tracks the true count
+        along the DAG); the batch-axis vertices override it."""
+        return in_mbs[0]
 
 
 @register_vertex("layer")
@@ -147,10 +164,33 @@ class LayerVertex(GraphVertex):
             # the NETWORK minibatch: time-flattened inputs arrive as
             # [b*t, f] and FeedForwardToRnn rebuilds [b, t, f]
             mb = minibatch if minibatch is not None else x.shape[0]
-            x = self.preprocessor(x, minibatch_size=mb)
+            x = call_preprocessor(self.preprocessor, x, minibatch_size=mb,
+                                  generator=generator)
             mask = self.preprocessor.transform_mask(mask, minibatch_size=mb)
         return self.layer.apply(params, x, state=state, train=train,
                                 generator=generator, mask=mask, policy=policy)
+
+
+@register_vertex("merge")
+@dataclasses.dataclass
+class MergeVertex(GraphVertex):
+    """Concatenate along the feature (last) axis — depth for NHWC CNN
+    activations."""
+
+    def output_type(self, input_types):
+        first = input_types[0]
+        if first.kind == "convolutional":
+            return InputType.convolutional(
+                first.height, first.width,
+                sum(t.channels for t in input_types))
+        if first.kind == "recurrent":
+            return InputType.recurrent(sum(t.size for t in input_types),
+                                       first.timesteps)
+        return InputType.feed_forward(sum(t.flat_size() for t in input_types))
+
+    def apply(self, params, xs, *, state=None, policy=None, masks=None,
+              train=False, generator=None, minibatch=None):
+        return torch.cat(list(xs), dim=-1), state
 
 
 @register_vertex("elementwise")
@@ -188,6 +228,219 @@ class ElementWiseVertex(GraphVertex):
         else:
             raise ValueError(f"unknown elementwise op {self.op!r}")
         return out, state
+
+
+@register_vertex("subset")
+@dataclasses.dataclass
+class SubsetVertex(GraphVertex):
+    """Features ``[from_idx, to_idx]`` inclusive (channels for CNN
+    activations)."""
+
+    from_idx: int = 0
+    to_idx: int = 0
+
+    def output_type(self, input_types):
+        n = self.to_idx - self.from_idx + 1
+        it = input_types[0]
+        if it.kind == "recurrent":
+            return InputType.recurrent(n, it.timesteps)
+        if it.kind == "convolutional":
+            return InputType.convolutional(it.height, it.width, n)
+        return InputType.feed_forward(n)
+
+    def apply(self, params, xs, *, state=None, policy=None, masks=None,
+              train=False, generator=None, minibatch=None):
+        return xs[0][..., self.from_idx:self.to_idx + 1], state
+
+
+@register_vertex("stack")
+@dataclasses.dataclass
+class StackVertex(GraphVertex):
+    """Stack the inputs along the batch axis (weight-shared towers)."""
+
+    def output_type(self, input_types):
+        return input_types[0]
+
+    def apply(self, params, xs, *, state=None, policy=None, masks=None,
+              train=False, generator=None, minibatch=None):
+        return torch.cat(list(xs), dim=0), state
+
+    def output_mask(self, masks, minibatch=None):
+        if not masks or all(m is None for m in masks):
+            return None
+        if any(m is None for m in masks):
+            raise ValueError("StackVertex: either all or no inputs may be "
+                             "masked")
+        return torch.cat(list(masks), dim=0)
+
+    def output_minibatch(self, in_mbs):
+        return sum(in_mbs)
+
+
+@register_vertex("unstack")
+@dataclasses.dataclass
+class UnstackVertex(GraphVertex):
+    """Batch slice ``from_idx`` of ``stack_size`` equal slices."""
+
+    from_idx: int = 0
+    stack_size: int = 1
+
+    def output_type(self, input_types):
+        return input_types[0]
+
+    def _slice(self, a):
+        step = a.shape[0] // self.stack_size
+        return a[self.from_idx * step:(self.from_idx + 1) * step]
+
+    def apply(self, params, xs, *, state=None, policy=None, masks=None,
+              train=False, generator=None, minibatch=None):
+        return self._slice(xs[0]), state
+
+    def output_mask(self, masks, minibatch=None):
+        m = super().output_mask(masks)
+        return None if m is None else self._slice(m)
+
+    def output_minibatch(self, in_mbs):
+        return in_mbs[0] // self.stack_size
+
+
+@register_vertex("scale")
+@dataclasses.dataclass
+class ScaleVertex(GraphVertex):
+    """Multiply by a fixed scalar."""
+
+    scale: float = 1.0
+
+    def output_type(self, input_types):
+        return input_types[0]
+
+    def apply(self, params, xs, *, state=None, policy=None, masks=None,
+              train=False, generator=None, minibatch=None):
+        return xs[0] * self.scale, state
+
+
+@register_vertex("shift")
+@dataclasses.dataclass
+class ShiftVertex(GraphVertex):
+    """Add a fixed scalar."""
+
+    shift: float = 0.0
+
+    def output_type(self, input_types):
+        return input_types[0]
+
+    def apply(self, params, xs, *, state=None, policy=None, masks=None,
+              train=False, generator=None, minibatch=None):
+        return xs[0] + self.shift, state
+
+
+@register_vertex("l2")
+@dataclasses.dataclass
+class L2Vertex(GraphVertex):
+    """Pairwise L2 distance of two inputs → [b, 1] (siamese and triplet
+    nets): ``sqrt(Σ (a - b)² + epsilon)``."""
+
+    epsilon: float = 1e-8
+
+    def output_type(self, input_types):
+        return InputType.feed_forward(1)
+
+    def apply(self, params, xs, *, state=None, policy=None, masks=None,
+              train=False, generator=None, minibatch=None):
+        a = xs[0].reshape(xs[0].shape[0], -1)
+        b = xs[1].reshape(xs[1].shape[0], -1)
+        d2 = torch.sum(torch.square(a - b), dim=1, keepdim=True)
+        return torch.sqrt(d2 + self.epsilon), state
+
+
+@register_vertex("l2normalize")
+@dataclasses.dataclass
+class L2NormalizeVertex(GraphVertex):
+    """``x / sqrt(Σ x² + epsilon)`` over every axis but the batch."""
+
+    epsilon: float = 1e-8
+
+    def output_type(self, input_types):
+        return input_types[0]
+
+    def apply(self, params, xs, *, state=None, policy=None, masks=None,
+              train=False, generator=None, minibatch=None):
+        x = xs[0]
+        dims = tuple(range(1, x.ndim))
+        norm = torch.sqrt(torch.sum(torch.square(x), dim=dims, keepdim=True)
+                          + self.epsilon)
+        return x / norm, state
+
+
+@register_vertex("preprocessor")
+@dataclasses.dataclass
+class PreprocessorVertex(GraphVertex):
+    """A standalone input preprocessor (a shape adapter, or a sampler that
+    draws from the step's generator)."""
+
+    preprocessor: InputPreProcessor = None
+
+    def output_type(self, input_types):
+        return self.preprocessor.output_type(input_types[0])
+
+    def apply(self, params, xs, *, state=None, policy=None, masks=None,
+              train=False, generator=None, minibatch=None):
+        x = xs[0]
+        mb = minibatch if minibatch is not None else x.shape[0]
+        return call_preprocessor(self.preprocessor, x, minibatch_size=mb,
+                                 generator=generator), state
+
+    def output_mask(self, masks, minibatch=None):
+        m = masks[0] if masks else None
+        if m is None:
+            return None
+        return self.preprocessor.transform_mask(m, minibatch_size=minibatch)
+
+
+@register_vertex("last_time_step")
+@dataclasses.dataclass
+class LastTimeStepVertex(GraphVertex):
+    """[b, t, f] → [b, f] at each example's last unmasked step."""
+
+    def output_type(self, input_types):
+        return InputType.feed_forward(input_types[0].size)
+
+    def apply(self, params, xs, *, state=None, policy=None, masks=None,
+              train=False, generator=None, minibatch=None):
+        x = xs[0]
+        mask = masks[0] if masks else None
+        if mask is None:
+            return x[:, -1, :], state
+        # the first maximum of the flipped mask is the last active step
+        last = torch.flip(mask > 0, dims=(1,)).to(torch.int8).argmax(dim=1)
+        idx = x.shape[1] - 1 - last
+        return x[torch.arange(x.shape[0], device=x.device), idx], state
+
+    def output_mask(self, masks, minibatch=None):
+        return None  # one row per example, all active
+
+
+@register_vertex("duplicate_to_time_series")
+@dataclasses.dataclass
+class DuplicateToTimeSeriesVertex(GraphVertex):
+    """[b, f] broadcast to [b, t, f], t from the second input (the
+    reference activation named by ``reference_input``)."""
+
+    reference_input: str = ""
+
+    def output_type(self, input_types):
+        ref = input_types[1] if len(input_types) > 1 else None
+        return InputType.recurrent(input_types[0].flat_size(),
+                                   ref.timesteps if ref else None)
+
+    def apply(self, params, xs, *, state=None, policy=None, masks=None,
+              train=False, generator=None, minibatch=None):
+        x, ref = xs[0], xs[1]
+        return x[:, None, :].expand(x.shape[0], ref.shape[1],
+                                    x.shape[1]), state
+
+    def output_mask(self, masks, minibatch=None):
+        return masks[1] if masks and len(masks) > 1 else None
 
 
 # --------------------------------------------------------------------------
@@ -302,6 +555,15 @@ class ComputationGraphConfiguration:
     def from_json(s: str) -> "ComputationGraphConfiguration":
         return ComputationGraphConfiguration.from_dict(json.loads(s))
 
+    def to_yaml(self) -> str:
+        import yaml
+        return yaml.safe_dump(self.to_dict(), sort_keys=False)
+
+    @staticmethod
+    def from_yaml(s: str) -> "ComputationGraphConfiguration":
+        import yaml
+        return ComputationGraphConfiguration.from_dict(yaml.safe_load(s))
+
 
 class GraphBuilder:
     """Fluent DAG builder, reached via
@@ -314,6 +576,9 @@ class GraphBuilder:
         self._inputs: List[str] = []
         self._outputs: List[str] = []
         self._input_types: Optional[List[InputType]] = None
+        self._backprop_type = "standard"
+        self._tbptt_fwd = 20
+        self._tbptt_back = 20
 
     def add_inputs(self, *names: str) -> "GraphBuilder":
         self._inputs.extend(names)
@@ -345,6 +610,18 @@ class GraphBuilder:
         self._input_types = list(types)
         return self
 
+    def backprop_type(self, kind: str) -> "GraphBuilder":
+        self._backprop_type = kind.lower()
+        return self
+
+    def t_bptt_forward_length(self, n: int) -> "GraphBuilder":
+        self._tbptt_fwd = int(n)
+        return self
+
+    def t_bptt_backward_length(self, n: int) -> "GraphBuilder":
+        self._tbptt_back = int(n)
+        return self
+
     def build(self) -> ComputationGraphConfiguration:
         conf = ComputationGraphConfiguration(
             vertices=self._vertices,
@@ -353,6 +630,9 @@ class GraphBuilder:
             network_outputs=list(self._outputs),
             training=copy.deepcopy(self._base._t),
             input_types=self._input_types,
+            backprop_type=self._backprop_type,
+            tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_back_length=self._tbptt_back,
         )
         conf.validate()
         # insert input preprocessors and infer nIn along the DAG

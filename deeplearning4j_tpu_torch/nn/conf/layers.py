@@ -13,9 +13,10 @@ tensors::
 Output layers score through ``losses.py``. Dropout is applied to the
 layer's INPUT in training, as in the reference, from the ``generator``
 the runtime passes (a ``torch.Generator`` on the activations' device).
-Recurrent layers live in ``recurrent.py`` and attention in
-``attention.py``; all register here. A layer type this package does not
-have (the pretrain layers, MoE) raises :class:`NotYetPorted`.
+Recurrent layers live in ``recurrent.py``, attention in
+``attention.py``, the MoE FFN in ``moe.py`` and the pretrain layers in
+``pretrain.py``; all register here. A layer type no package registers
+raises :class:`NotYetPorted`.
 """
 
 from __future__ import annotations

@@ -15,8 +15,11 @@ from .layers import Layer, layer_from_dict, layer_to_dict
 from .preprocessors import InputPreProcessor, preprocessor_from_dict
 from .training import TrainingConfig
 
-# register the recurrent and attention layer types the JSON may name
+# register the recurrent, attention, MoE and pretrain layer types the JSON
+# may name
 from . import attention as _attention  # noqa: F401
+from . import moe as _moe  # noqa: F401
+from . import pretrain as _pretrain  # noqa: F401
 from . import recurrent as _recurrent  # noqa: F401
 
 

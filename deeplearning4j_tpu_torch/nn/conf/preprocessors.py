@@ -7,16 +7,18 @@ autograd derives the backward. ``transform_mask`` carries a mask through
 the same reshape. CNN activations are NHWC, so CnnToFeedForward flattens
 in (h, w, c) order, as the reference does.
 
-Ported: CnnToFeedForward, FeedForwardToCnn, RnnToFeedForward,
-FeedForwardToRnn, CnnToRnn, RnnToCnn, Reshape, ZeroMean, UnitVariance and
-ZeroMeanAndUnitVariance. The reference's BinomialSampling and Composable
-preprocessors raise :class:`NotYetPorted` when a configuration names
-them.
+All of the reference's: CnnToFeedForward, FeedForwardToCnn,
+RnnToFeedForward, FeedForwardToRnn, CnnToRnn, RnnToCnn, Reshape, ZeroMean,
+UnitVariance, ZeroMeanAndUnitVariance, BinomialSampling and Composable.
+The network runtimes call them through :func:`call_preprocessor`, which
+hands a sampling preprocessor (``wants_rng``) the step's
+``torch.Generator``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Dict, Type
 
 import torch
@@ -34,6 +36,28 @@ def register_preprocessor(name: str):
     return deco
 
 
+def call_preprocessor(proc: "InputPreProcessor", x, minibatch_size=None,
+                      generator=None):
+    """Apply a preprocessor from a network runtime: one that samples
+    (``wants_rng``) draws from the step's ``generator``; every other is a
+    plain call."""
+    if getattr(proc, "wants_rng", False) and generator is not None:
+        return proc(x, minibatch_size=minibatch_size, generator=generator)
+    return proc(x, minibatch_size=minibatch_size)
+
+
+def child_generator(generator: torch.Generator, index: int) -> torch.Generator:
+    """A generator for child ``index`` of a composite, seeded from the
+    parent's current state and the index (host-side state; no device
+    read)."""
+    state = generator.get_state().numpy().tobytes()
+    digest = hashlib.blake2s(state + index.to_bytes(4, "big"),
+                             digest_size=8).digest()
+    child = torch.Generator(device=generator.device)
+    child.manual_seed(int.from_bytes(digest, "big") >> 1)
+    return child
+
+
 def preprocessor_from_dict(d) -> "InputPreProcessor":
     from .layers import NotYetPorted
     d = dict(d)
@@ -44,6 +68,9 @@ def preprocessor_from_dict(d) -> "InputPreProcessor":
                            "the PyTorch package")
     if "to_shape" in d:
         d["to_shape"] = tuple(d["to_shape"])
+    if "children" in d:         # Composable: nested preprocessors
+        d["children"] = tuple(preprocessor_from_dict(c)
+                              for c in d["children"])
     return cls(**d)
 
 
@@ -246,3 +273,67 @@ class ZeroMeanAndUnitVariancePreProcessor(InputPreProcessor):
 
     def output_type(self, input_type):
         return input_type
+
+
+@register_preprocessor("binomial_sampling")
+@dataclasses.dataclass(frozen=True)
+class BinomialSamplingPreProcessor(InputPreProcessor):
+    """Bernoulli samples of activations read as probabilities (clipped to
+    [0, 1]), straight-through in the backward (the sample's gradient is
+    the identity's). In a network the draw comes from the step's
+    generator, so every step samples afresh; a direct call without one
+    draws from a generator seeded with ``seed``."""
+    seed: int = 0
+    wants_rng = True
+
+    def __call__(self, x, minibatch_size=None, generator=None):
+        if generator is None:
+            generator = torch.Generator(device=x.device)
+            generator.manual_seed(self.seed)
+        u = torch.rand(x.shape, generator=generator, device=x.device,
+                       dtype=torch.promote_types(x.dtype, torch.float32))
+        sample = (u < torch.clamp(x, 0.0, 1.0)).to(x.dtype)
+        return x + (sample - x).detach()
+
+    def output_type(self, input_type):
+        return input_type
+
+
+@register_preprocessor("composable")
+@dataclasses.dataclass(frozen=True)
+class ComposableInputPreProcessor(InputPreProcessor):
+    """Apply ``children`` in order (their masks and output types too); a
+    sampling child draws from a generator offset by its index from the
+    step's."""
+    children: tuple = ()
+
+    @property
+    def wants_rng(self):
+        return any(getattr(p, "wants_rng", False) for p in self.children)
+
+    def __call__(self, x, minibatch_size=None, generator=None):
+        for i, p in enumerate(self.children):
+            if getattr(p, "wants_rng", False) and generator is not None:
+                x = p(x, minibatch_size=minibatch_size,
+                      generator=child_generator(generator, i))
+            else:
+                x = p(x, minibatch_size=minibatch_size)
+        if generator is not None and self.wants_rng:
+            # move the step's stream on, so a later composite in the same
+            # step seeds its children differently
+            torch.rand((1,), generator=generator, device=generator.device)
+        return x
+
+    def transform_mask(self, mask, minibatch_size=None):
+        for p in self.children:
+            mask = p.transform_mask(mask, minibatch_size=minibatch_size)
+        return mask
+
+    def output_type(self, input_type):
+        for p in self.children:
+            input_type = p.output_type(input_type)
+        return input_type
+
+    def to_dict(self):
+        return {"type": self._type_name,
+                "children": [p.to_dict() for p in self.children]}

@@ -20,16 +20,24 @@ forward length: one update per chunk, the carry passed on with its
 gradient cut), ``fit_repeated`` K steps on one batch, ``fit_scan`` one
 step on each of K staged batches, and ``fit`` iterates arrays, a
 DataSet-like object or a plain iterable of batches. Losses stay on the
-device; listeners get a ``LazyScore``. Dropout draws from a
-``torch.Generator`` on the net's device, seeded from the configuration's
-seed and the update count. ``pretrain`` and gradient checkpointing raise
-``NotYetPorted``.
+device; listeners get a ``LazyScore``. Dropout (and a sampling
+preprocessor) draws from a ``torch.Generator`` on the net's device, seeded
+from the configuration's seed and the update count. A layer's
+``"aux_loss"`` state entry (``MoELayer``) is added to the loss.
+
+With ``gradient_checkpointing`` the training forward runs in about √N
+segments of consecutive layers, each under ``torch.utils.checkpoint``
+(non-reentrant), masks threaded through; a segment restores the step
+generator's state on entry so its recompute draws the same masks.
+``pretrain`` trains the AutoEncoder and RBM layers greedily, each on the
+frozen activations below it.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from .. import dtypes as _dtypes
@@ -37,10 +45,10 @@ from .. import losses as _losses
 from ..optimize import updaters as _updaters
 from ..optimize.listeners import as_listener_score
 from ..util import health as _health
-from ..util.netutil import (named_generator, note_streamed_steps,
-                             precheck_streamed_steps)
-from .conf.layers import NotYetPorted
+from ..util.netutil import (checkpoint_segment, named_generator,
+                             note_streamed_steps, precheck_streamed_steps)
 from .conf.multi_layer import MultiLayerConfiguration
+from .conf.preprocessors import call_preprocessor
 
 _CARRY_KEYS = ("h", "c", "pos")
 
@@ -230,7 +238,8 @@ class MultiLayerNetwork(torch.nn.Module):
         """Preprocessor + layer forward at position ``i``."""
         proc = self.conf.input_preprocessors.get(i)
         if proc is not None:
-            cur = proc(cur, minibatch_size=minibatch)
+            cur = call_preprocessor(proc, cur, minibatch_size=minibatch,
+                                    generator=generator)
             cur_mask = proc.transform_mask(cur_mask, minibatch_size=minibatch)
         cur, st = self.layers[i].apply(p_i, cur, state=state_i, train=train,
                                        generator=generator, mask=cur_mask,
@@ -247,6 +256,11 @@ class MultiLayerNetwork(torch.nn.Module):
         params = self._require_params() if params is None else params
         states = self._states_list() if states is None else states
         upto = len(self.layers) if upto is None else upto
+        if (self.training.gradient_checkpointing and train and not collect
+                and torch.is_grad_enabled()):
+            return self._forward_segmented(x, params=params, states=states,
+                                           generator=generator, mask=mask,
+                                           upto=upto)
         minibatch = x.shape[0]
         cur, cur_mask = x, mask
         acts = [x] if collect else None
@@ -263,9 +277,39 @@ class MultiLayerNetwork(torch.nn.Module):
                 acts.append(cur)
         return (acts if collect else cur), new_states
 
+    def _forward_segmented(self, x, *, params, states, generator, mask,
+                           upto):
+        """The training forward with segment-level recomputation: layers
+        ``[0, upto)`` in about √N runs, each under ``checkpoint_segment``
+        so only the runs' boundary activations stay live for the backward
+        (the recompute redraws the same masks); the states returned are the
+        first forward's."""
+        minibatch = x.shape[0]
+        cur, cur_mask = x, mask
+        new_states: List[Dict[str, Any]] = []
+        for idx in np.array_split(np.arange(upto),
+                                  max(1, int(np.ceil(np.sqrt(max(upto, 1)))))):
+            def seg_fn(cur, cur_mask, _seg=tuple(int(i) for i in idx)):
+                st_out = []
+                for i in _seg:
+                    cur, cur_mask, st = self._apply_layer(
+                        i, params[self.keys[i]], cur, cur_mask, states[i],
+                        generator, train=True, minibatch=minibatch)
+                    st_out.append(st)
+                return cur, cur_mask, st_out
+
+            cur, cur_mask, st_out = checkpoint_segment(seg_fn, generator,
+                                                       cur, cur_mask)
+            new_states.extend(st_out)
+        new_states.extend(states[upto:])     # layers past upto: untouched
+        return cur, new_states
+
     def _generator(self, name: str) -> Optional[torch.Generator]:
-        """The dropout generator of one step (None when no layer drops)."""
-        if not any((layer.dropout or 0.0) > 0.0 for layer in self.layers):
+        """The generator of one step's draws (None when no layer drops and
+        no preprocessor samples)."""
+        if not (any((layer.dropout or 0.0) > 0.0 for layer in self.layers)
+                or any(getattr(p, "wants_rng", False)
+                       for p in self.conf.input_preprocessors.values())):
             return None
         return named_generator(self.device, self.training.seed, name)
 
@@ -369,9 +413,6 @@ class MultiLayerNetwork(torch.nn.Module):
             raise ValueError(
                 "final layer has no loss (need OutputLayer/RnnOutputLayer/"
                 "LossLayer to train with fit())")
-        if self.training.gradient_checkpointing:
-            raise NotYetPorted("gradient_checkpointing is not yet ported to "
-                               "the PyTorch package")
         params = self._require_params() if params is None else params
         n_hidden = len(self.layers) - 1
         fwd, new_states = self._forward(
@@ -388,7 +429,8 @@ class MultiLayerNetwork(torch.nn.Module):
         proc = self.conf.input_preprocessors.get(n_hidden)
         out_mask = mask
         if proc is not None:
-            hidden = proc(hidden, minibatch_size=x.shape[0])
+            hidden = call_preprocessor(proc, hidden, minibatch_size=x.shape[0],
+                                       generator=generator)
             out_mask = proc.transform_mask(out_mask, minibatch_size=x.shape[0])
         score_arr = out_layer.compute_score_array(
             params[self.keys[-1]], hidden, y, mask=out_mask,
@@ -397,6 +439,10 @@ class MultiLayerNetwork(torch.nn.Module):
             out_mask, y, score_arr.shape[0],
             sparse=_losses.is_sparse(out_layer.loss))
         loss = torch.sum(score_arr) / denom + self._reg_penalty(params)
+        # auxiliary objectives a layer returns in its state (MoELayer)
+        for st in new_states:
+            if "aux_loss" in st:
+                loss = loss + st["aux_loss"]
         loss = loss.to(self._loss_dtype())
         if collect_stats is not None:
             return loss, new_states, act_stats
@@ -597,27 +643,62 @@ class MultiLayerNetwork(torch.nn.Module):
         DataSet-like object, or an iterable of either (re-iterated each
         epoch; an iterator with ``reset()`` is reset before each later
         epoch). Listeners' ``on_epoch_start``/``on_epoch_end`` fire around
-        each epoch."""
+        each epoch (``util.batching.fit_epochs``)."""
+        from ..util.batching import fit_epochs
+        if self.params is None:
+            self.init()
+        fit_epochs(self, data, labels, epochs, mask)
+
+    # ------------------------------------------------------------------
+    # layerwise pretraining
+    # ------------------------------------------------------------------
+
+    def pretrain(self, data, labels=None, *, epochs: int = 1,
+                 learning_rate: Optional[float] = None) -> None:
+        """Greedy layerwise pretraining of the AutoEncoder and RBM layers:
+        each trains on the activations of the layers before it, frozen
+        (``make_pretrain_step``), then the stack moves one layer deeper.
+        Nothing else moves."""
+        from .conf.pretrain import make_pretrain_step
         from ..util.batching import iter_batches
         if self.params is None:
             self.init()
-        for epoch in range(int(epochs)):
-            if epoch and hasattr(data, "reset"):
-                data.reset()
-            for listener in self.listeners:
-                if hasattr(listener, "on_epoch_start"):
-                    listener.on_epoch_start(self, self.epoch_count)
-            for x, y, m in iter_batches(data, labels, mask):
-                self.fit_batch(x, y, m)
-            for listener in self.listeners:
-                if hasattr(listener, "on_epoch_end"):
-                    listener.on_epoch_end(self, self.epoch_count)
-            self.epoch_count += 1
+        lr = float(learning_rate if learning_rate is not None
+                   else self.training.learning_rate)
+        pre_idx = [i for i, layer in enumerate(self.layers)
+                   if hasattr(layer, "pretrain_loss")
+                   or hasattr(layer, "contrastive_divergence_grads")]
+        if not pre_idx:
+            return
+        batches = [self._to_input(x)
+                   for x, _, _ in iter_batches(data, labels, None)]
+        params = self._require_params()
+        for i in pre_idx:
+            step = make_pretrain_step(self.layers[i], lr, self.policy)
+            # the layers before i are frozen, so its inputs are the same
+            # every epoch: held across epochs when there are few batches
+            cache = [None] * len(batches) if (
+                epochs > 1 and len(batches) <= 64) else None
+            for e in range(int(epochs)):
+                for bi, x in enumerate(batches):
+                    hidden = None if cache is None else cache[bi]
+                    if hidden is None:
+                        hidden = self._activation_upto(x, i)
+                        if cache is not None:
+                            cache[bi] = hidden
+                    gen = named_generator(self.device, self.training.seed,
+                                          f"pre_{i}_{e}_{bi}")
+                    step(params[self.keys[i]], hidden, gen)
 
-    def pretrain(self, data, labels=None, **kw) -> None:
-        raise NotYetPorted("MultiLayerNetwork.pretrain: the pretrain layers "
-                           "(nn/conf/pretrain.py) are not yet ported to the "
-                           "PyTorch package")
+    def _activation_upto(self, x, layer_idx: int) -> torch.Tensor:
+        """The input activation of layer ``layer_idx``: the layers before
+        it in eval mode, then its preprocessor."""
+        with torch.no_grad():
+            cur, _ = self._forward(x, upto=layer_idx)
+        proc = self.conf.input_preprocessors.get(layer_idx)
+        if proc is not None:
+            cur = proc(cur, minibatch_size=x.shape[0])
+        return cur
 
     # ------------------------------------------------------------------
     # evaluation

@@ -1,7 +1,7 @@
 """Small shared helpers of the network runtimes (counterpart of the JAX
 package's ``util/netutil.py``): the per-name generator seeds, the
-streaming K/V cache limits, the strict-mode refusal and the warn-once on
-overflow."""
+checkpointed segment that redraws its masks, the streaming K/V cache
+limits, the strict-mode refusal and the warn-once on overflow."""
 
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ import hashlib
 import warnings
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 def name_seed(seed: int, name: str) -> int:
@@ -22,6 +23,21 @@ def named_generator(device, seed: int, name: str) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(name_seed(seed, name))
     return gen
+
+
+def checkpoint_segment(fn, generator, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward instead of kept. The
+    checkpoint preserves only the default RNG, so ``generator``'s state at
+    entry (the step's dropout and sampling draws) is restored before each
+    run of ``fn``: the recompute draws the masks the forward drew."""
+    state = None if generator is None else generator.get_state()
+
+    def run(*a):
+        if state is not None:
+            generator.set_state(state)
+        return fn(*a)
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 class StreamingCacheOverflow(RuntimeError):

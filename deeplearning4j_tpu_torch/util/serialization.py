@@ -248,6 +248,10 @@ def save_model(net, path: str, save_updater: bool = True) -> None:
     zbuf = io.BytesIO()
     with zipfile.ZipFile(zbuf, "w", zipfile.ZIP_DEFLATED) as zf:
         for name, data in entries.items():
-            zf.writestr(name, data)
+            # the arrays are stored, not deflated: float weights barely
+            # compress, and inflating gigabytes dominated a large model's
+            # load (either package reads both methods)
+            zf.writestr(name, data, compress_type=(
+                zipfile.ZIP_STORED if name == _ARRAYS_ENTRY else None))
         zf.writestr(_CHECKSUMS_ENTRY, json.dumps(manifest, indent=2))
     _write_file_atomic(path, zbuf.getbuffer())

@@ -237,7 +237,10 @@ def test_layer_input_types_match_reference(name):
 def test_unported_preprocessor_and_layer_raise_naming_them():
     d = json.loads(_mlp(JAX).to_json())
     d["input_preprocessors"] = {"0": {"type": "binomial_sampling", "seed": 0}}
-    with pytest.raises(NotYetPorted, match="binomial_sampling"):
+    assert isinstance(TMLC.from_dict(d).input_preprocessors[0],
+                      TP.BinomialSamplingPreProcessor)
+    d["input_preprocessors"] = {"0": {"type": "bernoulli_noise", "seed": 0}}
+    with pytest.raises(NotYetPorted, match="bernoulli_noise"):
         TMLC.from_dict(d)
     d = json.loads(_mlp(JAX).to_json())
     d["layers"][0]["type"] = "auto_encoder"
@@ -504,9 +507,14 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
     j_save(JMLN(_mlp(JAX)).init(), path)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_model(path)
+    # pretrain is ported: a net without AutoEncoder or RBM layers keeps
+    # its parameters
     net = MultiLayerNetwork(_mlp(TORCH), device="cpu").init()
-    with pytest.raises(NotYetPorted, match="pretrain"):
-        net.pretrain(np.zeros((2, 10), np.float32))
+    before = net.clone_params()
+    net.pretrain(np.zeros((2, 10), np.float32))
+    for key, ps in net.params.items():
+        for name, p in ps.items():
+            assert torch.equal(p, before[key][name]), (key, name)
 
 
 # --------------------------------------------------------------------------

@@ -293,6 +293,9 @@ def test_resume_across_packages(tmp_path, first):
 
 
 def test_unported_training_options_raise(tmp_path):
+    """Dropout, gradient checkpointing and truncated BPTT all train on the
+    port: checkpointing gives the full walk's loss, TBPTT takes one update
+    per 20-step chunk; only fit_repeated refuses to chunk."""
     x, y = _batch()
     # dropout is ported: a dropout layer trains, from the step's generator
     net = ComputationGraph(transformer_lm(V, n_layers=1, d_model=D,
@@ -300,18 +303,27 @@ def test_unported_training_options_raise(tmp_path):
                            device="cpu").init()
     net.conf.vertices["blk0_ff1"].layer.dropout = 0.1
     assert np.isfinite(float(net.fit_batch(x, y)))
-    for edit, match in ((lambda c: setattr(c.training,
-                                           "gradient_checkpointing", True),
-                         "gradient_checkpointing"),
-                        (lambda c: setattr(c, "backprop_type",
-                                           "truncated_bptt"), "BPTT")):
-        net = ComputationGraph(transformer_lm(V, n_layers=1, d_model=D,
-                                              n_heads=H, d_ff=FF,
-                                              input_ids=True),
-                               device="cpu").init()
-        edit(net.conf)
-        with pytest.raises(NotYetPorted, match=match):
-            net.fit_batch(x, y)
+    plain = ComputationGraph(transformer_lm(V, n_layers=1, d_model=D,
+                                            n_heads=H, d_ff=FF,
+                                            input_ids=True),
+                             device="cpu").init()
+    remat = ComputationGraph(transformer_lm(V, n_layers=1, d_model=D,
+                                            n_heads=H, d_ff=FF,
+                                            input_ids=True),
+                             device="cpu")
+    remat.set_params(plain.clone_params())
+    remat.conf.training.gradient_checkpointing = True
+    assert float(remat.fit_batch(x, y)) == pytest.approx(
+        float(plain.fit_batch(x, y)), rel=1e-6)
+    tbptt = ComputationGraph(transformer_lm(V, n_layers=1, d_model=D,
+                                            n_heads=H, d_ff=FF,
+                                            input_ids=True),
+                             device="cpu").init()
+    tbptt.conf.backprop_type = "truncated_bptt"
+    assert np.isfinite(float(tbptt.fit_batch(x[:, :, None], y)))
+    assert tbptt._update_count == tbptt.iteration_count == -(-T // 20)
+    with pytest.raises(ValueError, match="BPTT"):
+        tbptt.fit_repeated(x[:, :, None], y, 2)
     # listeners are ported: set, then cleared
     listener = object()
     net.set_listeners(listener)
