@@ -45,7 +45,32 @@ Phases, in order; any failure propagates and the script exits non-zero:
    forward with the plain backward (which a backward missing one key tile
    must fail); two timed rounds of fit_repeated(k=8) (losses finite and
    falling), the same for the dense attention route; one step profiled;
-8. classic main path, at bench.py's widths with random weights from the
+8. substrate main path: the flagship (the same widths and depth) trained
+   through the port's training substrate from a sharded record set (16
+   shards of 8 token sequences of 2048, written by data.records) read by
+   RecordDataSetIterator with the shard shuffle and a shuffle buffer,
+   staged onto the card by util.ingest on its own stream. First the
+   staging gate: batches read behind a device sleep arrive intact, and a
+   stager planted without record_stream or without its waits is caught.
+   Run A: an uninterrupted fit of 12 steps with a DurableSession writing
+   asynchronously every 4 steps (each kernel must launch 12 times a step;
+   a silent listener, so 0 host syncs); run B: the same seed, preempted
+   (PreemptionHandler.request) after 6 steps, its stop snapshot resumed
+   by a fresh DurableTrainer; run C: a child process (this script with
+   --substrate-child, loading the kernels the parent built) hard-killed
+   by os._exit at the "training.step" seam after 6 steps, resumed here
+   from its committed snapshot at step 4. B's and C's losses and final
+   masters must equal A's bitwise, with the same cursor batch counter at
+   every step. Readings: the step wall staged and unstaged, with a write
+   outstanding and without, host gap p50/p99, h2d bytes and seconds,
+   snapshot bytes and write seconds, resume load seconds, coalesce=4
+   against per-step dispatch (equal update counts), one profiled step's
+   busy share. Then at toy widths in f32: an EarlyStoppingGraphTrainer
+   with LocalFileModelSaver (the best model re-scores to its record),
+   L-BFGS and CG on a MultiLayerNetwork (the loss halves), and the
+   DL4JTPU_CONV_DW=matmul / DL4JTPU_CONV_1X1=dot lowerings on the ResNet
+   stem and 1x1 geometries against the default (within 1e-4);
+9. classic main path, at bench.py's widths with random weights from the
    seed: LeNet-5 (f32, adam lr 1e-3, batch 1024 of [784], 10 classes;
    cuDNN's TF32 must be off after it), the char-RNN (two GravesLSTM(512),
    mixed bf16, adam, one-hot [512, 64, 80], plus one fit_batch on
@@ -68,7 +93,7 @@ Phases, in order; any failure propagates and the script exits non-zero:
    width 128, 2 heads of 64, mixed bf16 through MultiLayerNetwork: one
    fit_batch launches each of the four flash kernels once, the forward
    and step-0 gradients within the route bounds of the dense route;
-9. MoE main path: transformer_lm(moe_experts=8, moe_top_k=2) at the
+10. MoE main path: transformer_lm(moe_experts=8, moe_top_k=2) at the
    flagship widths (mixed bf16, adam lr 3e-4, random weights from the
    seed; 532M parameters, dense dispatch): one forward over [8, 2048] ids
    (flash_fwd 12 times; the logits against the dense attention route
@@ -92,13 +117,13 @@ Phases, in order; any failure propagates and the script exits non-zero:
    dispatch a captured graph) on four greedy requests of 64-512 prompt
    tokens and 64 new tokens against generate up to near ties, and every
    key's replay against eager, bitwise;
-10. the rest of the slice at small widths, f32: a ComputationGraph with
+11. the rest of the slice at small widths, f32: a ComputationGraph with
    Merge, Stack/Unstack, L2Normalize and a BinomialSampling preprocessor
    (over binary inputs, so every draw is pinned), a GravesLSTM graph
    trained with TBPTT (three chunks a batch) and an AE → RBM → output
    MultiLayerNetwork pretrained layer by layer then fine-tuned: each one's
    first loss within 1e-5 of the same weights' on the CPU, then falling;
-11. decode main path on the flagship widths at 4 layers with a
+12. decode main path on the flagship widths at 4 layers with a
    2048-token window (mixed_bf16, random weights from the seed), served
    by the paged
    engine at 8 lanes: the port's generate as the oracle; the host-ticked
@@ -117,7 +142,7 @@ Phases, in order; any failure propagates and the script exits non-zero:
    draft_transformer_lm draft and with the target as its own draft
    (acceptance, greedy tokens, reproducibility, replay against eager);
    two concurrent POST /generate requests;
-12. fleet main path (the serving tier): two InferenceServer replicas of
+13. fleet main path (the serving tier): two InferenceServer replicas of
    the flagship widths at 4 layers with a 256-token window (4 lanes, the
    ticked step)
    warming in the background and registered by ReplicaAgents in a
@@ -143,7 +168,8 @@ Phases, in order; any failure propagates and the script exits non-zero:
    sync, the step's wall and device time and kernels with stats on and
    off, and a NaN in one layer's parameter attributed to that layer and
    served by GET /debug/health;
-13. a {"classic": ...}, a {"moe": ...}, a {"slice": ...} and a
+14. a {"classic": ...}, a {"moe": ...}, a {"slice": ...}, a
+   {"substrate": ...} and a
    {"fleet": ...} JSON line of those readings, a JSON line of the kernels
    (launches on the training path and per path, error, times, bound), the
    card line, and last {"ok": true, "device": {...}}.
@@ -174,6 +200,9 @@ if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device available", file=sys.stderr)
     sys.exit(1)
 
+from deeplearning4j_tpu_torch.data.pipeline import (  # noqa: E402
+    RecordDataSetIterator)
+from deeplearning4j_tpu_torch.data.records import write_shard_set  # noqa: E402
 from deeplearning4j_tpu_torch.models import (  # noqa: E402
     char_rnn_lstm, lenet, resnet50, transformer_lm)
 from deeplearning4j_tpu_torch.nn.conf import (  # noqa: E402
@@ -199,8 +228,12 @@ from deeplearning4j_tpu_torch.util import capture  # noqa: E402
 from deeplearning4j_tpu_torch.util import faults  # noqa: E402
 from deeplearning4j_tpu_torch.util import flightrecorder  # noqa: E402
 from deeplearning4j_tpu_torch.util import health  # noqa: E402
+from deeplearning4j_tpu_torch.util import ingest  # noqa: E402
 from deeplearning4j_tpu_torch.util import profiling  # noqa: E402
+from deeplearning4j_tpu_torch.util.durable import (  # noqa: E402
+    AsyncCheckpointWriter, CheckpointStore, DurableSession, DurableTrainer)
 from deeplearning4j_tpu_torch.util.metrics import MetricsRegistry  # noqa: E402
+from deeplearning4j_tpu_torch.util.metrics import REGISTRY as METRICS  # noqa: E402
 from deeplearning4j_tpu_torch.util.serialization import (  # noqa: E402
     load_model, save_model)
 from deeplearning4j_tpu_torch.util.tracing import Tracer  # noqa: E402
@@ -3294,7 +3327,7 @@ def phase_fleet():
     # 1. two replicas warming in the background, registered; the router
     store = FileCoordinationStore(os.path.join(tmp, "store"))
     replicas = ["r0", "r1"]
-    servers, agents = [], []
+    servers, agents, docs = [], [], []
     for kn in KERNELS:
         kn.launches = 0
     t_start = time.perf_counter()
@@ -3311,7 +3344,9 @@ def phase_fleet():
         agents.append(ReplicaAgent(
             srv, store, replica=name, lease_s=FLEET["lease_s"],
             heartbeat_every_s=FLEET["heartbeat_s"]).start())
-    docs = [store.get_json(f"hb/{r}.json") for r in replicas]
+        # each replica's registration, read as soon as it is written: the
+        # first replica may finish warming while the second is built
+        docs.append(store.get_json(f"hb/{name}.json"))
     router = FleetRouter(store, lease_s=FLEET["lease_s"], retry_budget=2,
                          request_timeout_s=300.0,
                          attempt_timeout_s=FLEET["attempt_timeout_s"],
@@ -3321,8 +3356,14 @@ def phase_fleet():
                for d in docs):
             raise AssertionError(f"replicas registered ready while "
                                  f"capturing: {docs}")
-        if router._pick()[0] is not None:
-            raise AssertionError("the router picked a warming replica")
+        # the router goes by heartbeats, which lag the servers: a replica
+        # still warming before the pick cannot have a ready heartbeat, so
+        # the router must not pick it (one that finished may be picked)
+        warming = {n: srv._warming for n, srv in zip(replicas, servers)}
+        picked = router._pick()[0]
+        if picked is not None and warming[picked]:
+            raise AssertionError(f"the router picked {picked} while it "
+                                 "was warming")
         # a /predict straight to a warming replica: flash_fwd on the card
         # while the other thread captures
         code, body = fleet_request(servers[0].port, "/predict",
@@ -3766,6 +3807,599 @@ def phase_health():
     return readings, launches
 
 
+# --------------------------------------------------------------------------
+# substrate main path: a durable, staged, streaming fit of the flagship
+# --------------------------------------------------------------------------
+
+# 16 shards of 8 token sequences (an epoch of 16 batches of [8, 2048]);
+# run A takes 12 steps with an async snapshot every 4; run B is asked to
+# stop after 6 and resumed; run C's child is killed at the seam of step 7
+# and resumed from its committed snapshot at step 4.
+SUBSTRATE = {"shards": 16, "per_shard": 8, "buffer": 16, "steps": 12,
+             "frequency": 4, "preempt_after": 6, "kill_after": 6,
+             "compare_steps": 8, "coalesce": 4, "no_staging_steps": 6}
+SUBSTRATE_CHILD_S = 300      # the hard-killed child's time limit
+# the staging gate: batches of this many f32 elements, each read behind a
+# ~25 ms device sleep, so a copy that is not ordered after the read shows
+STAGING_GATE = {"batches": 6, "elems": 1 << 22, "sleep_cycles": 50_000_000}
+# toy-width checks: conv lowerings against the default one, relative to
+# the largest magnitude (f32, TF32 off; per-tap products sum in another
+# order), as the kernels' f32 bound
+CONV_ALT_TOL = TOL_F32
+ES_SCORE_REL = 1e-6          # the best model re-scored against its record
+
+
+def substrate_conf():
+    V, L, D, H, F = (FLAGSHIP[k] for k in "VLDHF")
+    return transformer_lm(V, n_layers=L, d_model=D, n_heads=H, d_ff=F,
+                          dtype="mixed_bf16", input_ids=True)
+
+
+def write_token_shards(directory):
+    """Token sequences a model can learn from in a few steps: each id
+    follows its predecessor by a fixed affine rule, one in ten replaced by
+    a random id (so the losses move, and the bitwise gate compares losses
+    that differ step to step)."""
+    V, T = FLAGSHIP["V"], FLAGSHIP["T"]
+    n = SUBSTRATE["shards"] * SUBSTRATE["per_shard"]
+    rng = np.random.default_rng(SEED + 20)
+    ids = np.empty((n, T + 1), np.int64)
+    ids[:, 0] = rng.integers(0, V, n)
+    for t in range(1, T + 1):
+        ids[:, t] = (ids[:, t - 1] * 5 + 17) % V
+    noise = rng.random((n, T + 1)) < 0.1
+    ids[noise] = rng.integers(0, V, int(noise.sum()))
+    ids = ids.astype(np.int32)
+    return write_shard_set(directory, "tokens",
+                           ({"features": r[:-1], "labels": r[1:]}
+                            for r in ids), SUBSTRATE["shards"])
+
+
+def token_iterator(directory):
+    return RecordDataSetIterator(directory, "tokens",
+                                 batch_size=FLAGSHIP["B"], seed=SEED,
+                                 shuffle_shards=True,
+                                 shuffle_buffer=SUBSTRATE["buffer"])
+
+
+class StepLog:
+    """Listener: each step's LazyScore (read only after the fit), the host
+    time it fired, and whether a snapshot write was outstanding then."""
+
+    def __init__(self, writer=None):
+        self.scores, self.times, self.busy = [], [], []
+        self.writer = writer
+
+    def iteration_done(self, model, iteration, score):
+        self.times.append(time.perf_counter())
+        self.scores.append(score)
+        self.busy.append(bool(self.writer is not None
+                              and self.writer._busy))
+
+    def losses(self):
+        return [float(s) for s in self.scores]
+
+    def walls(self):
+        """Host seconds between consecutive steps' firings (the first
+        step, which starts the producer and counts FLOPs, has none)."""
+        return np.diff(np.asarray(self.times))
+
+
+class StepSeam:
+    """The fit loop's "training.step" seam: records the session's cursor
+    (its batch counter) at each step boundary, and runs ``action`` on the
+    iteration count (a preemption request, a kill)."""
+
+    def __init__(self, session_of, action=None):
+        self.session_of = session_of
+        self.action = action
+        self.cursors = {}
+
+    def __call__(self, payload):
+        s = self.session_of()
+        if s is not None and s._cursor is not None:
+            self.cursors[payload["iteration"]] = s._cursor["batch_index"]
+        if self.action is not None:
+            self.action(payload["iteration"])
+
+    def run(self, fn):
+        plan = faults.FaultPlan()
+        plan.always("training.step", exc=self)
+        with plan.active():
+            return fn()
+
+
+def host_params(net):
+    return {v: {k: p.detach().cpu().clone() for k, p in ps.items()}
+            for v, ps in net.params.items()}
+
+
+def params_equal(net, want):
+    return all(torch.equal(p.detach().cpu(), want[v][k])
+               for v, ps in net.params.items() for k, p in ps.items())
+
+
+def median_ms(xs):
+    return float(np.median(np.asarray(xs))) * 1e3 if len(xs) else None
+
+
+def hist_totals(name):
+    """(sum, count) over every series of a histogram in the registry."""
+    h = METRICS.get(name)
+    if h is None:
+        return 0.0, 0
+    series = h.snapshot()["series"]
+    return (sum(s["sum"] for s in series), sum(s["count"] for s in series))
+
+
+def substrate_child(cfg):
+    """The run-C child: the flagship's durable fit with synchronous
+    snapshots every ``frequency`` steps, hard-killed with os._exit at the
+    "training.step" seam once ``kill_after`` steps are done. The kernels
+    were built by the parent before it started this process; the child
+    only loads them."""
+    net = ComputationGraph(substrate_conf()).init()
+    trainer = DurableTrainer(net, cfg["dir"], frequency=cfg["frequency"],
+                             async_writes=False, handle_signals=True)
+
+    def kill(iteration):
+        if iteration == cfg["kill_after"]:
+            sys.stdout.flush()
+            os._exit(9)
+    StepSeam(lambda: trainer.session, kill).run(
+        lambda: trainer.fit(token_iterator(cfg["records"]), epochs=1))
+    sys.exit(3)                 # not reached: the kill comes first
+
+
+def staging_gate():
+    """The stager's ordering on the card. One batch at a time through a
+    DeviceStager: the training stream sleeps, then sums the batch; the
+    batch is dropped and the next one staged at once. With
+    record_stream the allocator may hand the dropped batch's memory to
+    that next copy only once the sum has read it, so every sum is
+    intact; a stager planted without record_stream gets the memory back
+    at once and the copy lands before the sum reads it.
+    Without the waits (the producer's copy held behind a sleep on its
+    stream) the sum must read memory the copy has not filled. Also
+    reported: whether work on the stager's stream waits for the default
+    stream (it must not, or the copy cannot overlap the step)."""
+    g = STAGING_GATE
+
+    def run(plant):
+        stager = ingest.DeviceStager(DEV, stage_name="gate", _plant=plant)
+        bad = reused = 0
+        for i in range(g["batches"]):
+            # no other free block of the batch's size: a dropped batch's
+            # memory is then the one the next copy would be given
+            torch.cuda.empty_cache()
+            (x, _, _), event = stager.stage(
+                (np.full((g["elems"],), float(i), np.float32), None, None))
+            stager.adopt((x, None, None), event)
+            ptr = x.data_ptr()
+            torch.cuda._sleep(g["sleep_cycles"])
+            s = x.sum()
+            del x
+            (nx, _, _), _ = stager.stage(
+                (np.full((g["elems"],), -1.0, np.float32), None, None))
+            reused += nx.data_ptr() == ptr
+            del nx
+            bad += float(s) != float(i) * g["elems"]
+        torch.cuda.synchronize()
+        return bad, reused
+
+    (clean_bad, clean_reused), (nr_bad, nr_reused) = run(None), run(
+        "no_record")
+    stager = ingest.DeviceStager(DEV, stage_name="gate_wait",
+                                 _plant="no_wait")
+    stager._stream = torch.cuda.Stream()
+    with torch.cuda.stream(stager._stream):
+        torch.cuda._sleep(4 * g["sleep_cycles"])
+    (x, _, _), event = stager.stage((np.ones(g["elems"], np.float32),
+                                     None, None))
+    stager.adopt((x, None, None), event)
+    early = float(x.sum())
+    torch.cuda.synchronize()
+    no_wait = early != float(g["elems"])
+    side = torch.cuda.Stream()
+    torch.cuda._sleep(4 * g["sleep_cycles"])
+    mark = torch.cuda.Event()
+    mark.record(side)
+    t0 = time.perf_counter()
+    while not mark.query():
+        pass
+    side_wait_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    print(f"substrate staging gate: clean stager {clean_bad}/{g['batches']} "
+          f"bad sums, memory of a pending read reused {clean_reused} times; "
+          f"without record_stream {nr_bad} bad, reused {nr_reused} times; "
+          f"without the waits the read saw {early:.0f} of {g['elems']} "
+          f"(caught: {no_wait}); an event on a side stream behind a busy "
+          f"default stream completed after {side_wait_ms:.3f} ms")
+    if clean_bad or not nr_bad or not no_wait:
+        raise AssertionError("the staging gate does not hold")
+    return {"clean_bad": clean_bad, "clean_reused": clean_reused,
+            "no_record_bad": nr_bad, "no_record_reused": nr_reused,
+            "no_wait_caught": no_wait, "side_stream_wait_ms": side_wait_ms}
+
+
+def substrate_toys():
+    """The rest of the slice at toy widths in f32 on the card: early
+    stopping, the solvers, the conv lowerings."""
+    from deeplearning4j_tpu_torch.datasets import ArrayDataSetIterator
+    from deeplearning4j_tpu_torch.earlystopping import (
+        DataSetLossCalculator, EarlyStoppingConfiguration,
+        EarlyStoppingGraphTrainer, LocalFileModelSaver,
+        MaxEpochsTerminationCondition)
+    from deeplearning4j_tpu_torch.nn.conf.layers import (DenseLayer,
+                                                         OutputLayer)
+    from deeplearning4j_tpu_torch.ops import convops
+    from deeplearning4j_tpu_torch.optimize.solvers import Solver
+    out = {}
+    rng = np.random.default_rng(SEED + 21)
+    x = rng.normal(size=(256, 16)).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[np.argmax(
+        x @ rng.normal(size=(16, 4)), axis=1)]
+
+    conf = (NeuralNetConfiguration.builder().seed(SEED).updater("adam")
+            .learning_rate(0.01).graph_builder().add_inputs("in")
+            .add_layer("d", DenseLayer(n_in=16, n_out=64,
+                                       activation="relu"), "in")
+            .add_layer("out", OutputLayer(n_in=64, n_out=4,
+                                          activation="softmax",
+                                          loss="mcxent"), "d")
+            .set_outputs("out").build())
+    with tempfile.TemporaryDirectory() as d:
+        cfg = (EarlyStoppingConfiguration.builder()
+               .score_calculator(DataSetLossCalculator(
+                   ArrayDataSetIterator(x[192:], y[192:], 32)))
+               .epoch_termination_conditions(MaxEpochsTerminationCondition(2))
+               .model_saver(LocalFileModelSaver(d)).build())
+        result = EarlyStoppingGraphTrainer(
+            cfg, ComputationGraph(conf).init(),
+            ArrayDataSetIterator(x[:192], y[:192], 32)).fit()
+        best = result.best_model
+        rescored = DataSetLossCalculator(
+            ArrayDataSetIterator(x[192:], y[192:], 32)).calculate_score(best)
+    rel = abs(rescored - result.best_model_score) / abs(
+        result.best_model_score)
+    print(f"substrate toys: EarlyStoppingGraphTrainer {result.total_epochs} "
+          f"epochs ({result.termination_reason}), best epoch "
+          f"{result.best_model_epoch} score {result.best_model_score:.8g}, "
+          f"re-scored {rescored:.8g} (rel {rel:.3g}, bound {ES_SCORE_REL}); "
+          f"best model on {best.device}")
+    if not rel <= ES_SCORE_REL or best.device.type != DEV.type:
+        raise AssertionError("the saved best model does not re-score to "
+                             "its record")
+    out["earlystopping"] = {"best_score": result.best_model_score,
+                            "rescored": rescored, "epochs":
+                            result.total_epochs}
+
+    for algo in ("lbfgs", "conjugate_gradient"):
+        mconf = (NeuralNetConfiguration.builder().seed(SEED)
+                 .optimization_algo(algo).updater("sgd").learning_rate(0.1)
+                 .list().layer(DenseLayer(n_out=32, activation="tanh"))
+                 .layer(OutputLayer(n_out=4, activation="softmax",
+                                    loss="mcxent"))
+                 .set_input_type(InputType.feed_forward(16)).build())
+        mln = MultiLayerNetwork(mconf).init()
+        s0 = mln.score_for(x, y)
+        s1 = Solver(mln).optimize(x, y, iterations=30)
+        print(f"substrate toys: {algo} on the card, loss {s0:.6g} -> "
+              f"{s1:.6g}")
+        if not s1 < 0.5 * s0:
+            raise AssertionError(f"{algo} did not reduce the loss")
+        out[algo] = {"before": s0, "after": s1}
+
+    geoms = {"resnet stem 7x7/2": ((2, 224, 224, 3), (7, 7, 3, 64), (2, 2),
+                                   (3, 3), "DL4JTPU_CONV_DW", "matmul"),
+             "1x1 s1": ((8, 56, 56, 64), (1, 1, 64, 256), (1, 1), (0, 0),
+                        "DL4JTPU_CONV_1X1", "dot"),
+             "1x1/2 shortcut": ((8, 56, 56, 256), (1, 1, 256, 512), (2, 2),
+                                "same", "DL4JTPU_CONV_1X1", "dot"),
+             "3x3 matmul-dW": ((8, 56, 56, 64), (3, 3, 64, 64), (1, 1),
+                               "same", "DL4JTPU_CONV_DW", "matmul")}
+    for name, (xs, ws, st, pad, env, val) in geoms.items():
+        xc = torch.randn(xs, device=DEV, generator=torch.Generator(
+            DEV).manual_seed(SEED))
+        wc = torch.randn(ws, device=DEV, generator=torch.Generator(
+            DEV).manual_seed(SEED + 1)) * 0.05
+
+        def run():
+            a = xc.clone().requires_grad_(True)
+            b = wc.clone().requires_grad_(True)
+            y_ = convops.conv2d(a, b, st, pad)
+            dy = torch.ones_like(y_).mul_(0.01).add_(
+                torch.linspace(-1, 1, y_.shape[-1], device=DEV))
+            gx, gw = torch.autograd.grad((y_ * dy).sum(), (a, b))
+            return y_.detach(), gx, gw
+        os.environ.pop(env, None)
+        ref = run()
+        os.environ[env] = val
+        try:
+            alt = run()
+        finally:
+            del os.environ[env]
+        errs = [float((g - r).abs().max() / r.abs().max())
+                for g, r in zip(alt, ref)]
+        print(f"substrate toys: {env}={val} on {name}: relative max|d| "
+              f"y/dx/dW {errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} "
+              f"(bound {CONV_ALT_TOL})")
+        if not max(errs) <= CONV_ALT_TOL:
+            raise AssertionError(f"{env}={val} disagrees with the default "
+                                 f"lowering on {name}")
+        out[name] = errs
+    return out
+
+
+def phase_substrate():
+    """Runs A (uninterrupted, async snapshots), B (preempted and resumed)
+    and C (a child hard-killed and resumed) of the flagship's durable,
+    staged fit over a sharded record set; their losses and final masters
+    must be bitwise equal, with the same cursor batch counter at every
+    step. Returns (readings, the four kernels' launches in run A)."""
+    L, B, T = FLAGSHIP["L"], FLAGSHIP["B"], FLAGSHIP["T"]
+    steps, freq = SUBSTRATE["steps"], SUBSTRATE["frequency"]
+    reg = METRICS
+    readings = {"staging_gate": staging_gate()}
+    tmp = tempfile.mkdtemp(prefix="dl4jtpu_substrate_")
+    child = None
+    try:
+        rec = os.path.join(tmp, "records")
+        t0 = time.perf_counter()
+        paths = write_token_shards(rec)
+        print(f"substrate data: {len(paths)} shards, "
+              f"{sum(os.path.getsize(p) for p in paths)} bytes, written in "
+              f"{time.perf_counter() - t0:.3f} s")
+
+        # ---- run A: uninterrupted, an async snapshot every `freq` steps
+        net = ComputationGraph(substrate_conf()).init()
+        it = token_iterator(rec)
+        store = CheckpointStore(os.path.join(tmp, "A"), keep=2)
+        writer = AsyncCheckpointWriter(store)
+        session = DurableSession(net, store, data=it, frequency=freq,
+                                 writer=writer, max_steps=steps)
+        log = StepLog(writer)
+        net.set_listeners(log)
+        seam_a = StepSeam(lambda: session)
+        syncs0 = ingest.sync_counter().value()
+        h2d_b0 = reg.counter("ingest_h2d_bytes_total", "", ("stage",)).value(
+            stage="fit")
+        h2d_s0 = reg.counter("ingest_h2d_seconds_total", "",
+                             ("stage",)).value(stage="fit")
+        w_sum0, w_n0 = hist_totals("checkpoint_write_seconds")
+        ev0 = len(flightrecorder.events("train_step"))
+        for kn in KERNELS:
+            kn.launches = 0
+        t0 = time.perf_counter()
+        seam_a.run(lambda: net.fit(it, epochs=1, session=session))
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        launches = {kn.name: kn.launches for kn in KERNELS}
+        syncs = ingest.sync_counter().value() - syncs0
+        h2d_b = reg.get("ingest_h2d_bytes_total").value(stage="fit") - h2d_b0
+        h2d_s = reg.get("ingest_h2d_seconds_total").value(
+            stage="fit") - h2d_s0
+        gaps = [e["host_gap_s"] for e in
+                flightrecorder.events("train_step")[ev0:]
+                if e.get("host_gap_s") is not None][-(steps - 1):]
+        writer.close()
+        w_sum, w_n = hist_totals("checkpoint_write_seconds")
+        snaps = store.snapshots()
+        snap_bytes = os.path.getsize(os.path.join(
+            store.directory, snaps[-1], "model.zip"))
+        cursors_a = dict(seam_a.cursors)
+        cursors_a[steps] = session._cursor["batch_index"]
+        losses_a = log.losses()
+        params_a = host_params(net)
+        walls = log.walls()
+        busy = np.asarray(log.busy[1:])
+        print(f"substrate run A: {steps} steps in {wall_a:.3f} s, launches "
+              f"{launches}, host syncs {syncs:g} ({syncs / steps:g} per "
+              f"step), losses {np.array2string(np.asarray(losses_a), precision=6)}")
+        if any(n != steps * L for n in launches.values()):
+            raise AssertionError(f"run A launched {launches}, expected each "
+                                 f"kernel {steps * L} times")
+        if syncs != 0:
+            raise AssertionError("a silent listener's fit made host syncs")
+        if not np.isfinite(losses_a).all() or net.iteration_count != steps:
+            raise AssertionError("run A's losses or step count")
+        readings.update({
+            "step_ms_staged": median_ms(walls),
+            "step_ms_write_outstanding": median_ms(walls[busy]),
+            "step_ms_no_write": median_ms(walls[~busy]),
+            "steps_with_write_outstanding": int(busy.sum()),
+            "host_gap_ms_p50": percentile(gaps, 50) * 1e3,
+            "host_gap_ms_p99": percentile(gaps, 99) * 1e3,
+            "h2d_bytes": h2d_b, "h2d_seconds": h2d_s,
+            "host_syncs_per_step": syncs / steps,
+            "checkpoint_writes": w_n - w_n0,
+            "checkpoint_write_seconds": (w_sum - w_sum0) / max(1, w_n - w_n0),
+            "snapshot_bytes": snap_bytes, "snapshots_a": snaps,
+            "skipped_writes": reg.get(
+                "checkpoint_writes_skipped_total").value()
+            if reg.get("checkpoint_writes_skipped_total") else 0,
+            "measured_mfu": reg.get("measured_mfu").value(
+                model="ComputationGraph")
+            if reg.get("measured_mfu") else None})
+
+        # ---- readings on the same net, no snapshot writer: staging on
+        # and off in turns, then coalescing against per-step dispatch
+        # (each mode's signature warmed first: its first call counts
+        # FLOPs under FlopCounterMode), then one profiled step
+        def timed_fit(steps_, coalesce=None, log_=None):
+            it_ = token_iterator(rec)
+            net.set_listeners(*([log_] if log_ is not None else []))
+            u0 = net._update_count
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            net.fit(it_, epochs=1, coalesce=coalesce, session=DurableSession(
+                net, None, data=it_, max_steps=steps_))
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0_) / steps_, \
+                net._update_count - u0
+
+        walls_by = {"staged": [], "unstaged": []}
+        for mode in ("staged", "unstaged", "unstaged", "staged"):
+            log_t = StepLog()
+            if mode == "unstaged":
+                os.environ["DL4JTPU_INGEST"] = "0"
+            try:
+                timed_fit(SUBSTRATE["no_staging_steps"], log_=log_t)
+            finally:
+                os.environ.pop("DL4JTPU_INGEST", None)
+            walls_by[mode].extend(log_t.walls())
+        readings["step_ms_staged_no_writer"] = median_ms(walls_by["staged"])
+        readings["step_ms_unstaged"] = median_ms(walls_by["unstaged"])
+        timed_fit(SUBSTRATE["coalesce"], coalesce=SUBSTRATE["coalesce"])
+        per = {name: timed_fit(SUBSTRATE["compare_steps"], coalesce=k)
+               for name, k in (("per_step", None),
+                               ("coalesced", SUBSTRATE["coalesce"]),
+                               ("per_step_again", None))}
+        if len({u for _, u in per.values()}) != 1:
+            raise AssertionError(f"coalesced updates {per}")
+        readings["coalesce"] = {n: {"step_ms": w * 1e3, "updates": u}
+                                for n, (w, u) in per.items()}
+        flops_g = reg.get("compiled_flops")
+        readings["counted_flops_per_step"] = (
+            flops_g.value(fn="ComputationGraph.train_step")
+            if flops_g is not None else None)
+        readings["model_flops_per_step"] = B * T * train_flops_per_token(
+            FLAGSHIP["D"], L, FLAGSHIP["F"], FLAGSHIP["V"], T)
+        batch = token_iterator(rec).next()
+        xb = torch.as_tensor(batch.features, device=DEV)
+        yb = torch.as_tensor(batch.labels, device=DEV)
+        dev_ms = profile(lambda: net.fit_batch(xb, yb),
+                         "one substrate step")
+        readings["profiled_step_device_ms"] = dev_ms
+        readings["busy_share"] = (None if dev_ms is None else
+                                  dev_ms / readings["step_ms_staged"])
+        print(f"substrate readings [{B}, {T}] mixed_bf16 adam: step "
+              f"{readings['step_ms_staged']:.3f} ms staged in run A, "
+              f"without a writer {readings['step_ms_staged_no_writer']:.3f}"
+              f" ms staged and {readings['step_ms_unstaged']:.3f} ms "
+              f"unstaged (turns); in run A with a "
+              f"write outstanding {readings['step_ms_write_outstanding']} "
+              f"ms ({readings['steps_with_write_outstanding']} steps), "
+              f"without {readings['step_ms_no_write']} ms; host gap p50 "
+              f"{readings['host_gap_ms_p50']:.3f} ms p99 "
+              f"{readings['host_gap_ms_p99']:.3f} ms; h2d "
+              f"{h2d_b:.0f} bytes in {h2d_s:.4f} s; snapshot "
+              f"{snap_bytes} bytes, {w_n - w_n0} writes of "
+              f"{readings['checkpoint_write_seconds']:.3f} s; coalesce "
+              f"{readings['coalesce']}; busy share {readings['busy_share']};"
+              f" FlopCounterMode counted "
+              f"{readings['counted_flops_per_step']} FLOPs a step (the "
+              f"flash kernels, called through ctypes, not seen) against "
+              f"bench.py's {readings['model_flops_per_step']:.4g}")
+        del net, session, writer, xb, yb
+        torch.cuda.empty_cache()
+
+        # ---- run C's child starts now and runs beside run B (the two
+        # processes share the card; nothing timed in B is reported)
+        dir_c = os.path.join(tmp, "C")
+        t_child = time.perf_counter()
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--substrate-child",
+             json.dumps({"dir": dir_c, "records": rec, "frequency": freq,
+                         "kill_after": SUBSTRATE["kill_after"]})],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+        # ---- run B: preempted after `preempt_after` steps, then resumed
+        dir_b = os.path.join(tmp, "B")
+        tb = DurableTrainer(ComputationGraph(substrate_conf()).init(), dir_b,
+                            frequency=10 ** 6, handle_signals=True)
+        log_b = StepLog()
+        tb.net.set_listeners(log_b)
+        seam_b = StepSeam(lambda: tb.session, lambda i: (
+            tb.session.preemption.request()
+            if i == SUBSTRATE["preempt_after"] - 1 else None))
+        seam_b.run(lambda: tb.fit(token_iterator(rec), epochs=1))
+        if not tb.preempted or tb.net.iteration_count != \
+                SUBSTRATE["preempt_after"]:
+            raise AssertionError("run B did not stop at its preemption")
+        cursors_b = dict(seam_b.cursors)
+        cursors_b[tb.net.iteration_count] = \
+            tb.session._cursor["batch_index"]
+        losses_b = log_b.losses()
+        del tb
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        tb2 = DurableTrainer(ComputationGraph(substrate_conf()), dir_b,
+                             frequency=10 ** 6, handle_signals=False)
+        torch.cuda.synchronize()
+        load_b = time.perf_counter() - t0
+        log_b2 = StepLog()
+        tb2.net.set_listeners(log_b2)
+        seam_b2 = StepSeam(lambda: tb2.session)
+        seam_b2.run(lambda: tb2.fit(
+            token_iterator(rec), epochs=1,
+            max_steps=steps - SUBSTRATE["preempt_after"]))
+        cursors_b.update(seam_b2.cursors)
+        cursors_b[tb2.net.iteration_count] = \
+            tb2.session._cursor["batch_index"]
+        losses_b += log_b2.losses()
+        same_b = params_equal(tb2.net, params_a)
+        del tb2
+        torch.cuda.empty_cache()
+
+        # ---- run C: the child hard-killed at a step seam, resumed here
+        _, child_err = child.communicate(timeout=SUBSTRATE_CHILD_S)
+        child_s = time.perf_counter() - t_child
+        if child.returncode != 9:
+            raise AssertionError(f"the child exited {child.returncode}, not "
+                                 f"by its kill: {child_err[-2000:]}")
+        t0 = time.perf_counter()
+        tc = DurableTrainer(ComputationGraph(substrate_conf()), dir_c,
+                            frequency=10 ** 6, handle_signals=False)
+        torch.cuda.synchronize()
+        load_c = time.perf_counter() - t0
+        resumed_at = tc.net.iteration_count
+        log_c = StepLog()
+        tc.net.set_listeners(log_c)
+        seam_c = StepSeam(lambda: tc.session)
+        seam_c.run(lambda: tc.fit(token_iterator(rec), epochs=1,
+                                  max_steps=steps - resumed_at))
+        cursors_c = dict(seam_c.cursors)
+        cursors_c[tc.net.iteration_count] = \
+            tc.session._cursor["batch_index"]
+        losses_c = log_c.losses()
+        same_c = params_equal(tc.net, params_a)
+        del tc
+        torch.cuda.empty_cache()
+
+        mism_b = {i: (c, cursors_a.get(i)) for i, c in cursors_b.items()
+                  if cursors_a.get(i) != c}
+        mism_c = {i: (c, cursors_a.get(i)) for i, c in cursors_c.items()
+                  if cursors_a.get(i) != c}
+        print(f"substrate run B: preempted after {SUBSTRATE['preempt_after']}"
+              f" steps, resumed in {load_b:.3f} s; losses equal A's "
+              f"{losses_b == losses_a}, masters equal {same_b}; cursor "
+              f"counters {sorted(cursors_b.items())}")
+        print(f"substrate run C: child killed after "
+              f"{SUBSTRATE['kill_after']} steps ({child_s:.3f} s), resumed "
+              f"at step {resumed_at} in {load_c:.3f} s; losses equal A's "
+              f"{losses_c == losses_a[resumed_at:]}, masters equal {same_c};"
+              f" cursor counters {sorted(cursors_c.items())}")
+        if losses_b != losses_a or not same_b or mism_b:
+            raise AssertionError(f"run B differs from run A (cursor "
+                                 f"mismatches {mism_b})")
+        if (resumed_at != freq or losses_c != losses_a[resumed_at:]
+                or not same_c or mism_c):
+            raise AssertionError(f"run C differs from run A (resumed at "
+                                 f"{resumed_at}, cursor mismatches {mism_c})")
+        readings.update({"resume_load_s": [load_b, load_c],
+                         "child_s": child_s, "losses": losses_a,
+                         "bitwise_b": True, "bitwise_c": True})
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    readings["toys"] = substrate_toys()
+    return readings, launches
+
+
 # Past this many seconds the run dumps every thread's stack to stderr and
 # exits non-zero: a hang or a slow machine then shows where it was, before
 # an outer time limit (1200 s) kills the process with nothing said.
@@ -3805,6 +4439,8 @@ def main():
     train_launches = timed_phase("training main path", phase_training, net)
     del net
     torch.cuda.empty_cache()
+    substrate, substrate_launches = timed_phase("substrate main path",
+                                                phase_substrate)
     classic, classic_launches = timed_phase("classic main path",
                                             phase_classic)
     moe, moe_launches = timed_phase("moe main path", phase_moe)
@@ -3845,13 +4481,15 @@ def main():
             "classic": classic_launches[k["name"]],
             "moe": moe_launches["training"][k["name"]],
             "moe_forward": moe_launches["forward"][k["name"]],
-            "moe_remat": moe_launches["remat"][k["name"]]}
+            "moe_remat": moe_launches["remat"][k["name"]],
+            "substrate": substrate_launches[k["name"]]}
     total = f"script {time.perf_counter() - T_START:.3f} s"
     print(total)
     print(f"chip_smoke: {total}", file=sys.stderr, flush=True)
     print(json.dumps({"classic": classic}))
     print(json.dumps({"moe": moe}))
     print(json.dumps({"slice": slice_}))
+    print(json.dumps({"substrate": substrate}))
     print(json.dumps(fleet))
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -3862,4 +4500,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--substrate-child":
+        substrate_child(json.loads(sys.argv[2]))
     main()

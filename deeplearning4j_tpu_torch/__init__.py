@@ -16,14 +16,18 @@ training, decode and the serving tier (the HTTP front, the fleet and the
 training-health telemetry); the list DSL and ``MultiLayerNetwork``, the
 convolutional, normalisation and recurrent layers, the classic zoo
 (LeNet-5, ResNet, char-RNN, AlexNet, VGG-16), classification evaluation
-and gradient checking.
+and gradient checking; the training substrate: the async fit loop with
+staging on a side CUDA stream, durable snapshots with exact resume,
+checkpoint recovery, early stopping, the record pipeline and datasets,
+and the full-batch solvers.
 """
 
 __version__ = "0.1.0"
 
 # Lazy module surface: keep `import deeplearning4j_tpu_torch` light.
 _SUBMODULES = {"nn", "models", "ops", "optimize", "parallel", "serving",
-               "util", "dtypes", "eval", "losses", "gradientcheck"}
+               "util", "dtypes", "eval", "losses", "gradientcheck",
+               "data", "datasets", "earlystopping"}
 
 
 def __getattr__(name):

@@ -899,14 +899,26 @@ class ComputationGraph(torch.nn.Module):
         self._fire_replay(xs[0].shape[1], losses)
         return losses
 
-    def fit(self, data, labels=None, *, epochs: int = 1, masks=None) -> None:
+    def fit(self, data, labels=None, *, epochs: int = 1,
+            coalesce: Optional[int] = None, session=None) -> None:
         """Train for ``epochs`` over (inputs, labels) arrays (or lists of
-        them), a DataSet-like object, or an iterable of either — the loop
-        ``MultiLayerNetwork.fit`` runs (``util.batching.fit_epochs``)."""
-        from ..util.batching import fit_epochs
+        them), a DataSet/MultiDataSet, or an iterable of either — the
+        asynchronous loop ``MultiLayerNetwork.fit`` runs
+        (``util.ingest.run_fit_loop``): background staging of iterator
+        sources onto the card, a bounded in-flight window, ``LazyScore``
+        listener delivery, lazy epoch-start resets, optional same-shape
+        coalescing (``coalesce=K`` / ``DL4JTPU_COALESCE_K``) and an
+        optional ``util.durable.DurableSession``."""
+        from ..util.ingest import run_fit_loop
         if self.params is None:
             self.init()
-        fit_epochs(self, data, labels, epochs, masks)
+        run_fit_loop(self, data, labels, None, epochs, coalesce,
+                     model_label="ComputationGraph", session=session)
+
+    @staticmethod
+    def _as_batches(data, labels=None, mask=None):
+        from ..util.batching import iter_batches
+        return iter_batches(data, labels, mask)
 
     # ------------------------------------------------------------------
     # layerwise pretraining

@@ -638,16 +638,27 @@ class MultiLayerNetwork(torch.nn.Module):
         self._fire_replay(xs.shape[1], losses)
         return losses
 
-    def fit(self, data, labels=None, *, epochs: int = 1, mask=None) -> None:
+    def fit(self, data, labels=None, *, epochs: int = 1, mask=None,
+            coalesce: Optional[int] = None, session=None) -> None:
         """Train for ``epochs`` over (features, labels) arrays, a
-        DataSet-like object, or an iterable of either (re-iterated each
-        epoch; an iterator with ``reset()`` is reset before each later
-        epoch). Listeners' ``on_epoch_start``/``on_epoch_end`` fire around
-        each epoch (``util.batching.fit_epochs``)."""
-        from ..util.batching import fit_epochs
+        DataSet-like object, or an iterable of either, through the
+        asynchronous loop (``util.ingest.run_fit_loop``): iterator
+        batches staged onto the card by a background thread, losses kept
+        on the card behind a bounded in-flight window, listeners handed a
+        ``LazyScore``, resets at the start of each later epoch,
+        ``coalesce=K`` runs of same-shape batches through ``fit_scan``,
+        and ``session`` a ``util.durable.DurableSession`` (cursors,
+        snapshots, preemption, watchdog)."""
+        from ..util.ingest import run_fit_loop
         if self.params is None:
             self.init()
-        fit_epochs(self, data, labels, epochs, mask)
+        run_fit_loop(self, data, labels, mask, epochs, coalesce,
+                     model_label="MultiLayerNetwork", session=session)
+
+    @staticmethod
+    def _as_batches(data, labels=None, mask=None):
+        from ..util.batching import iter_batches
+        return iter_batches(data, labels, mask)
 
     # ------------------------------------------------------------------
     # layerwise pretraining

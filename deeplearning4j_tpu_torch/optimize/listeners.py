@@ -10,9 +10,8 @@ listener that never reads the score costs none. ``fit_repeated`` and
 ``fit_scan`` read their K losses in one transfer and fire with host
 floats (the reference's replay).
 
-``LazyScore``, ``sync_counter`` and ``as_listener_score`` live in the
-reference's ``util/ingest.py``; the port keeps its copy here until the
-ingest pipeline is ported.
+``LazyScore``, ``sync_counter`` and ``as_listener_score`` live in
+``util/ingest.py``, as in the reference, and are re-exported here.
 """
 
 from __future__ import annotations
@@ -24,57 +23,10 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 
 from ..util import metrics as _metrics
+from ..util.ingest import (LazyScore, as_listener_score,  # noqa: F401
+                           sync_counter)
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
-
-
-def sync_counter(registry=None) -> _metrics.Counter:
-    return (registry if registry is not None
-            else _metrics.REGISTRY).counter(
-        "training_host_syncs_total",
-        "Device->host loss transfers forced by score readers")
-
-
-class LazyScore:
-    """A training loss that stays on the device until read.
-
-    ``float(score)`` / ``score.value()`` transfers it to the host (once;
-    the result is cached) and increments ``training_host_syncs_total``.
-    """
-
-    __slots__ = ("_device", "_host", "_registry")
-
-    def __init__(self, device_value, registry=None):
-        self._device = device_value
-        self._host: Optional[float] = None
-        self._registry = registry
-
-    @property
-    def resolved(self) -> bool:
-        return self._host is not None
-
-    def value(self) -> float:
-        if self._host is None:
-            sync_counter(self._registry).inc()
-            v, self._device = self._device, None
-            self._host = float(v)
-        return self._host
-
-    def __float__(self) -> float:
-        return self.value()
-
-    def __repr__(self) -> str:
-        return (f"LazyScore({self._host})" if self.resolved
-                else "LazyScore(<on device>)")
-
-
-def as_listener_score(loss, registry=None):
-    """Wrap a device loss for listener delivery; host scalars (the
-    fit_scan/fit_repeated replay, which already paid one transfer for all
-    K losses) pass through untouched."""
-    if isinstance(loss, (int, float, np.floating, np.integer)):
-        return loss
-    return LazyScore(loss, registry)
 
 
 class TrainingListener:

@@ -88,24 +88,10 @@ from ..util import tracing as _tracing
 from ..util import capture as _capture
 from ..util.resilience import SYSTEM_CLOCK, Clock, Deadline
 from .kv_cache import PagedKVArena
+from ..util.xla import pow2_bucket  # re-exported: its home is util/xla
 
 __all__ = ["PagedDecodeEngine", "DecodeScheduler", "DecodeRequest",
            "SchedulerSaturated", "SchedulerDraining", "pow2_bucket"]
-
-
-def pow2_bucket(n: int, cap: int) -> int:
-    """Round ``n`` up to the next power of two, capped at ``cap`` (itself a
-    power of two): the rule for every dispatch-shape axis (the lane
-    buckets and the fused block length), so any requested size maps into
-    a fixed, enumerable set of shapes."""
-    if n < 1:
-        raise ValueError(f"bucketed size must be >= 1, got {n}")
-    if cap < 1 or (cap & (cap - 1)):
-        raise ValueError(f"cap must be a power of two, got {cap}")
-    b = 1
-    while b < n:
-        b <<= 1
-    return min(b, cap)
 
 
 class SchedulerSaturated(RuntimeError):

@@ -56,7 +56,6 @@ the batched model call.
 from __future__ import annotations
 
 import contextlib
-import hashlib
 import json
 import queue
 import threading
@@ -72,6 +71,7 @@ from .. import dtypes as _dtypes
 from ..util import faults as _faults
 from ..util import metrics as _metrics
 from ..util import tracing as _tracing
+from ..util.durable import params_digest  # re-exported: its home is util/durable
 from ..util.resilience import (SYSTEM_CLOCK, STATE_VALUES, CircuitBreaker,
                                Clock, Deadline, metrics_transition_hook)
 
@@ -98,17 +98,6 @@ def to_numpy(out) -> np.ndarray:
     if torch.is_tensor(out):
         return out.detach().float().cpu().numpy()
     return np.asarray(out)
-
-
-def params_digest(params) -> str:
-    """sha256 over every parameter in deterministic (vertex, name) order."""
-    h = hashlib.sha256()
-    for vertex in sorted(params):
-        for name in sorted(params[vertex]):
-            t = params[vertex][name].detach().cpu()
-            h.update(f"{vertex}/{name}:{t.dtype}:{tuple(t.shape)}".encode())
-            h.update(t.float().numpy().tobytes())
-    return h.hexdigest()
 
 
 class _Pending:

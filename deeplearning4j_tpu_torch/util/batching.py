@@ -1,8 +1,8 @@
 """The batch-iteration helper of the network runtimes' ``fit``, ``pretrain``
 and ``evaluate`` (counterpart of the JAX package's ``util/batching.py``):
 one dispatch over (features, labels[, mask]) arrays, a DataSet-like
-object (``.features``/``.labels``) or an iterable of either; and the
-epoch loop both runtimes' ``fit`` run over it (``fit_epochs``)."""
+object (``.features``/``.labels``) or an iterable of either. The epoch
+loop over it is ``util.ingest.run_fit_loop``."""
 
 from __future__ import annotations
 
@@ -62,23 +62,3 @@ def iter_batches(data, labels=None, mask=None,
             x, y = item[0], item[1]
             m = item[2] if len(item) > 2 else None
             yield out(x, y, m)
-
-
-def fit_epochs(net, data, labels=None, epochs: int = 1, mask=None) -> None:
-    """The ``fit`` loop of both network runtimes: ``epochs`` passes of
-    ``net.fit_batch`` over :func:`iter_batches` of the data (an iterator
-    with ``reset()`` is reset before each later epoch), the listeners'
-    ``on_epoch_start``/``on_epoch_end`` around each pass, and
-    ``net.epoch_count`` advanced."""
-    for epoch in range(int(epochs)):
-        if epoch and hasattr(data, "reset"):
-            data.reset()
-        for listener in net.listeners:
-            if hasattr(listener, "on_epoch_start"):
-                listener.on_epoch_start(net, net.epoch_count)
-        for x, y, m in iter_batches(data, labels, mask):
-            net.fit_batch(x, y, m)
-        for listener in net.listeners:
-            if hasattr(listener, "on_epoch_end"):
-                listener.on_epoch_end(net, net.epoch_count)
-        net.epoch_count += 1

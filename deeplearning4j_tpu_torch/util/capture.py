@@ -77,7 +77,8 @@ def retrace_counter(registry: _metrics.MetricsRegistry) -> _metrics.Counter:
     return registry.counter(
         "jit_retraces_total",
         "Entries built per shape key (CUDA graph captures on the card, "
-        "first eager calls on the CPU)", ("fn",))
+        "first eager calls on the CPU) and distinct call signatures per "
+        "guarded step function (util.xla.retrace_guard)", ("fn",))
 
 
 def compile_seconds_histogram(registry: _metrics.MetricsRegistry
@@ -86,7 +87,8 @@ def compile_seconds_histogram(registry: _metrics.MetricsRegistry
         "xla_compile_seconds",
         "Wall time of each entry build (warm-up iterations and CUDA graph "
         "capture on the card, the first eager call on the CPU) per shape "
-        "key", ("fn",), buckets=_COMPILE_BUCKETS)
+        "key, and of each guarded step function's first call per "
+        "signature", ("fn",), buckets=_COMPILE_BUCKETS)
 
 
 def _as_tuple(out) -> Tuple[torch.Tensor, ...]:

@@ -59,6 +59,37 @@ def _write_file_atomic(path: str, data: bytes) -> None:
             os.remove(tmp)
 
 
+def verify_checkpoint(path: str) -> None:
+    """Validate a checkpoint artifact without building the model: a
+    readable zip with every required entry, and its sha256 manifest (or,
+    for an artifact without one, its zip CRCs) matching. Raises
+    :class:`CheckpointInvalid` with the reason otherwise."""
+    try:
+        if os.path.getsize(path) == 0:
+            raise CheckpointInvalid(f"{path}: empty file")
+        with zipfile.ZipFile(path, "r") as zf:
+            names = set(zf.namelist())
+            missing = {_CONFIG_ENTRY, _ARRAYS_ENTRY, _STATE_ENTRY} - names
+            if missing:
+                raise CheckpointInvalid(
+                    f"{path}: missing entries {sorted(missing)}")
+            if _CHECKSUMS_ENTRY in names:
+                manifest = json.loads(zf.read(_CHECKSUMS_ENTRY))
+                for name, want in manifest.items():
+                    if name not in names:
+                        raise CheckpointInvalid(
+                            f"{path}: manifest names missing entry {name!r}")
+                    if hashlib.sha256(zf.read(name)).hexdigest() != want:
+                        raise CheckpointInvalid(
+                            f"{path}: sha256 mismatch for {name!r}")
+            elif zf.testzip() is not None:
+                raise CheckpointInvalid(f"{path}: CRC mismatch")
+    except CheckpointInvalid:
+        raise
+    except Exception as e:
+        raise CheckpointInvalid(f"{path}: {type(e).__name__}: {e}") from e
+
+
 def _read(path: str) -> Tuple[str, Dict[str, np.ndarray], dict, dict]:
     """(configuration json, arrays, training state, dtype map), after
     checking every entry against ``checksums.json`` (or the zip CRCs for
@@ -208,9 +239,13 @@ def _numpy(t: torch.Tensor, key: str, dtype_map: Dict[str, str]) -> np.ndarray:
     return t.numpy()
 
 
-def save_model(net, path: str, save_updater: bool = True) -> None:
+def save_model(net, path: str, save_updater: bool = True,
+               model_class=None) -> None:
     """Write ``net`` as a checkpoint zip the JAX package's ``load_model``
-    reads (and this package's :func:`load_model`)."""
+    reads (and this package's :func:`load_model`). ``net`` is a network or
+    anything with its ``conf``/``params``/``state``/``updater_state`` and
+    counters; ``model_class`` overrides the recorded class name (a
+    detached ``util.durable`` snapshot is not the runtime class)."""
     arrays: Dict[str, np.ndarray] = {}
     dtype_map: Dict[str, str] = {}
     for vertex, params in net.params.items():
@@ -231,14 +266,14 @@ def save_model(net, path: str, save_updater: bool = True) -> None:
     np.savez(buf, **arrays)
     training_state = {
         "format_version": _FORMAT_VERSION,
-        "model_class": type(net).__name__,
+        "model_class": model_class or type(net).__name__,
         "iteration_count": net.iteration_count,
         "epoch_count": net.epoch_count,
         "update_count": net._update_count,
         "has_updater": has_updater,
     }
     entries = {_CONFIG_ENTRY: net.conf.to_json().encode("utf-8"),
-               _ARRAYS_ENTRY: buf.getvalue(),
+               _ARRAYS_ENTRY: buf.getbuffer(),     # no copy of the arrays
                _STATE_ENTRY: json.dumps(training_state,
                                         indent=2).encode("utf-8")}
     if dtype_map:
