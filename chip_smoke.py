@@ -52,18 +52,20 @@ Phases, in order; any failure propagates and the script exits non-zero:
    staged onto the card by util.ingest on its own stream. First the
    staging gate: batches read behind a device sleep arrive intact, and a
    stager planted without record_stream or without its waits is caught.
-   Run A: an uninterrupted fit of 12 steps with a DurableSession writing
-   asynchronously every 4 steps (each kernel must launch 12 times a step;
-   a silent listener, so 0 host syncs); run B: the same seed, preempted
-   (PreemptionHandler.request) after 6 steps, its stop snapshot resumed
-   by a fresh DurableTrainer; run C: a child process (this script with
-   --substrate-child, loading the kernels the parent built) hard-killed
-   by os._exit at the "training.step" seam after 6 steps, resumed here
-   from its committed snapshot at step 4. B's and C's losses and final
-   masters must equal A's bitwise, with the same cursor batch counter at
-   every step. Readings: the step wall staged and unstaged, with a write
-   outstanding and without, host gap p50/p99, h2d bytes and seconds,
-   snapshot bytes and write seconds, resume load seconds, coalesce=4
+   Run A: an uninterrupted fit of one epoch (16 steps) with a
+   DurableSession writing asynchronously every 4 steps (each kernel must
+   launch 12 times a step; a silent listener, so 0 host syncs); run B:
+   the same seed, preempted (PreemptionHandler.request) after 6 steps,
+   its stop snapshot resumed by a fresh DurableTrainer; run C: a child
+   process (this script with --substrate-child, loading the kernels the
+   parent built) writing asynchronously too, hard-killed by os._exit at
+   the "training.step" seam after 6 steps once its snapshot of step 4
+   has committed, resumed here from that snapshot. B's and C's losses
+   and final masters must equal A's bitwise, with the same cursor batch
+   counter at every step. Readings: the step wall staged and unstaged,
+   with a write outstanding and without, run A's wall a step and each
+   step's gap, host gap p50/p99, h2d bytes and seconds, snapshot bytes
+   and write seconds, resume load seconds, coalesce=4
    against per-step dispatch (equal update counts), one profiled step's
    busy share. Then at toy widths in f32: an EarlyStoppingGraphTrainer
    with LocalFileModelSaver (the best model re-scores to its record),
@@ -231,7 +233,8 @@ from deeplearning4j_tpu_torch.util import health  # noqa: E402
 from deeplearning4j_tpu_torch.util import ingest  # noqa: E402
 from deeplearning4j_tpu_torch.util import profiling  # noqa: E402
 from deeplearning4j_tpu_torch.util.durable import (  # noqa: E402
-    AsyncCheckpointWriter, CheckpointStore, DurableSession, DurableTrainer)
+    AsyncCheckpointWriter, CheckpointStore, DurableSession, DurableTrainer,
+    skipped_counter)
 from deeplearning4j_tpu_torch.util.metrics import MetricsRegistry  # noqa: E402
 from deeplearning4j_tpu_torch.util.metrics import REGISTRY as METRICS  # noqa: E402
 from deeplearning4j_tpu_torch.util.serialization import (  # noqa: E402
@@ -3361,6 +3364,10 @@ def phase_fleet():
         # the router must not pick it (one that finished may be picked)
         warming = {n: srv._warming for n, srv in zip(replicas, servers)}
         picked = router._pick()[0]
+        if not any(warming.values()):
+            raise AssertionError("both replicas finished warming before "
+                                 "the router's first pick, which then "
+                                 "tests nothing")
         if picked is not None and warming[picked]:
             raise AssertionError(f"the router picked {picked} while it "
                                  "was warming")
@@ -3812,10 +3819,11 @@ def phase_health():
 # --------------------------------------------------------------------------
 
 # 16 shards of 8 token sequences (an epoch of 16 batches of [8, 2048]);
-# run A takes 12 steps with an async snapshot every 4; run B is asked to
-# stop after 6 and resumed; run C's child is killed at the seam of step 7
-# and resumed from its committed snapshot at step 4.
-SUBSTRATE = {"shards": 16, "per_shard": 8, "buffer": 16, "steps": 12,
+# every run trains that one epoch. Run A plans an async snapshot every 4
+# steps; run B is asked to stop after 6 and resumed; run C's child writes
+# asynchronously too, is killed at the seam of step 7 once its snapshot
+# at step 4 has committed, and is resumed from it.
+SUBSTRATE = {"shards": 16, "per_shard": 8, "buffer": 16,
              "frequency": 4, "preempt_after": 6, "kill_after": 6,
              "compare_steps": 8, "coalesce": 4, "no_staging_steps": 6}
 SUBSTRATE_CHILD_S = 300      # the hard-killed child's time limit
@@ -3864,11 +3872,14 @@ def token_iterator(directory):
 
 class StepLog:
     """Listener: each step's LazyScore (read only after the fit), the host
-    time it fired, and whether a snapshot write was outstanding then."""
+    time it fired, and whether a snapshot write was outstanding then.
+    ``t0``, when the caller sets it just before the fit, times the first
+    step too."""
 
     def __init__(self, writer=None):
         self.scores, self.times, self.busy = [], [], []
         self.writer = writer
+        self.t0 = None
 
     def iteration_done(self, model, iteration, score):
         self.times.append(time.perf_counter())
@@ -3933,17 +3944,21 @@ def hist_totals(name):
 
 
 def substrate_child(cfg):
-    """The run-C child: the flagship's durable fit with synchronous
+    """The run-C child: the flagship's durable fit with asynchronous
     snapshots every ``frequency`` steps, hard-killed with os._exit at the
-    "training.step" seam once ``kill_after`` steps are done. The kernels
-    were built by the parent before it started this process; the child
-    only loads them."""
+    "training.step" seam once ``kill_after`` steps are done and the
+    writer has committed the snapshot it took while the steps went on
+    (so the resume reads a snapshot the writer thread copied from the
+    device clones). The kernels were built by the parent before it
+    started this process; the child only loads them."""
     net = ComputationGraph(substrate_conf()).init()
     trainer = DurableTrainer(net, cfg["dir"], frequency=cfg["frequency"],
-                             async_writes=False, handle_signals=True)
+                             async_writes=True, handle_signals=True)
 
     def kill(iteration):
         if iteration == cfg["kill_after"]:
+            if not trainer.session.writer.drain(timeout=SUBSTRATE_CHILD_S):
+                os._exit(4)
             sys.stdout.flush()
             os._exit(9)
     StepSeam(lambda: trainer.session, kill).run(
@@ -4136,9 +4151,11 @@ def phase_substrate():
     and C (a child hard-killed and resumed) of the flagship's durable,
     staged fit over a sharded record set; their losses and final masters
     must be bitwise equal, with the same cursor batch counter at every
-    step. Returns (readings, the four kernels' launches in run A)."""
+    step. Each trains one epoch. Returns (readings, the four kernels'
+    launches in run A)."""
     L, B, T = FLAGSHIP["L"], FLAGSHIP["B"], FLAGSHIP["T"]
-    steps, freq = SUBSTRATE["steps"], SUBSTRATE["frequency"]
+    steps = SUBSTRATE["shards"] * SUBSTRATE["per_shard"] // B
+    freq = SUBSTRATE["frequency"]
     reg = METRICS
     readings = {"staging_gate": staging_gate()}
     tmp = tempfile.mkdtemp(prefix="dl4jtpu_substrate_")
@@ -4152,12 +4169,13 @@ def phase_substrate():
               f"{time.perf_counter() - t0:.3f} s")
 
         # ---- run A: uninterrupted, an async snapshot every `freq` steps
+        # and at the epoch's end, each skipped while one is outstanding
         net = ComputationGraph(substrate_conf()).init()
         it = token_iterator(rec)
         store = CheckpointStore(os.path.join(tmp, "A"), keep=2)
         writer = AsyncCheckpointWriter(store)
         session = DurableSession(net, store, data=it, frequency=freq,
-                                 writer=writer, max_steps=steps)
+                                 writer=writer)
         log = StepLog(writer)
         net.set_listeners(log)
         seam_a = StepSeam(lambda: session)
@@ -4167,10 +4185,12 @@ def phase_substrate():
         h2d_s0 = reg.counter("ingest_h2d_seconds_total", "",
                              ("stage",)).value(stage="fit")
         w_sum0, w_n0 = hist_totals("checkpoint_write_seconds")
+        skips = skipped_counter()
+        skip0 = skips.value()
         ev0 = len(flightrecorder.events("train_step"))
         for kn in KERNELS:
             kn.launches = 0
-        t0 = time.perf_counter()
+        t0 = log.t0 = time.perf_counter()
         seam_a.run(lambda: net.fit(it, epochs=1, session=session))
         torch.cuda.synchronize()
         wall_a = time.perf_counter() - t0
@@ -4187,12 +4207,17 @@ def phase_substrate():
         snaps = store.snapshots()
         snap_bytes = os.path.getsize(os.path.join(
             store.directory, snaps[-1], "model.zip"))
+        # the seam reads the counter before steps 2..steps; the epoch's
+        # end clears the cursor, and the losses and masters cover the last
         cursors_a = dict(seam_a.cursors)
-        cursors_a[steps] = session._cursor["batch_index"]
         losses_a = log.losses()
         params_a = host_params(net)
         walls = log.walls()
         busy = np.asarray(log.busy[1:])
+        first_ms = (log.times[0] - log.t0) * 1e3
+        flash_flops = L * (fa.FWD_FLOPS_PER_PAIR + fa.DQ_FLOPS_PER_PAIR
+                           + fa.DKV_FLOPS_PER_PAIR) * B * FLAGSHIP["H"] * (
+            FLAGSHIP["D"] // FLAGSHIP["H"]) * fa.attention_pairs(T, True)
         print(f"substrate run A: {steps} steps in {wall_a:.3f} s, launches "
               f"{launches}, host syncs {syncs:g} ({syncs / steps:g} per "
               f"step), losses {np.array2string(np.asarray(losses_a), precision=6)}")
@@ -4205,8 +4230,16 @@ def phase_substrate():
             raise AssertionError("run A's losses or step count")
         readings.update({
             "step_ms_staged": median_ms(walls),
+            "run_a_ms_per_step": wall_a / steps * 1e3,
+            "first_step_ms": first_ms,
+            "step_gaps_ms": [float(w) * 1e3 for w in walls],
+            "step_ms_mean_after_first": float(np.mean(walls)) * 1e3,
             "step_ms_write_outstanding": median_ms(walls[busy]),
             "step_ms_no_write": median_ms(walls[~busy]),
+            "step_ms_mean_write_outstanding": float(
+                np.mean(walls[busy])) * 1e3 if busy.any() else None,
+            "step_ms_mean_no_write": float(
+                np.mean(walls[~busy])) * 1e3 if (~busy).any() else None,
             "steps_with_write_outstanding": int(busy.sum()),
             "host_gap_ms_p50": percentile(gaps, 50) * 1e3,
             "host_gap_ms_p99": percentile(gaps, 99) * 1e3,
@@ -4215,12 +4248,22 @@ def phase_substrate():
             "checkpoint_writes": w_n - w_n0,
             "checkpoint_write_seconds": (w_sum - w_sum0) / max(1, w_n - w_n0),
             "snapshot_bytes": snap_bytes, "snapshots_a": snaps,
-            "skipped_writes": reg.get(
-                "checkpoint_writes_skipped_total").value()
-            if reg.get("checkpoint_writes_skipped_total") else 0,
+            # of the snapshots the session asked for (each crossing of a
+            # multiple of `freq`, and the epoch's end), those skipped
+            # because a write was outstanding
+            "skipped_writes": skips.value() - skip0,
+            "flash_flops_per_step": float(flash_flops),
             "measured_mfu": reg.get("measured_mfu").value(
                 model="ComputationGraph")
             if reg.get("measured_mfu") else None})
+        print(f"substrate run A time: {wall_a / steps * 1e3:.3f} ms a step "
+              f"over the fit's wall, the first step {first_ms:.3f} ms (its "
+              f"FLOPs counted under FlopCounterMode, the producer started), "
+              f"then gaps of "
+              f"{np.array2string(walls * 1e3, precision=2)} ms (a write "
+              f"outstanding at {np.flatnonzero(busy) + 2}); "
+              f"measured_mfu {readings['measured_mfu']} over the dispatches "
+              f"after the first")
 
         # ---- readings on the same net, no snapshot writer: staging on
         # and off in turns, then coalescing against per-step dispatch
@@ -4287,10 +4330,10 @@ def phase_substrate():
               f"{snap_bytes} bytes, {w_n - w_n0} writes of "
               f"{readings['checkpoint_write_seconds']:.3f} s; coalesce "
               f"{readings['coalesce']}; busy share {readings['busy_share']};"
-              f" FlopCounterMode counted "
-              f"{readings['counted_flops_per_step']} FLOPs a step (the "
-              f"flash kernels, called through ctypes, not seen) against "
-              f"bench.py's {readings['model_flops_per_step']:.4g}")
+              f" counted {readings['counted_flops_per_step']} FLOPs a step "
+              f"(FlopCounterMode and the flash kernels' reports; their "
+              f"formula alone {flash_flops:.6g}) against bench.py's "
+              f"{readings['model_flops_per_step']:.4g}")
         del net, session, writer, xb, yb
         torch.cuda.empty_cache()
 
@@ -4332,12 +4375,8 @@ def phase_substrate():
         log_b2 = StepLog()
         tb2.net.set_listeners(log_b2)
         seam_b2 = StepSeam(lambda: tb2.session)
-        seam_b2.run(lambda: tb2.fit(
-            token_iterator(rec), epochs=1,
-            max_steps=steps - SUBSTRATE["preempt_after"]))
+        seam_b2.run(lambda: tb2.fit(token_iterator(rec), epochs=1))
         cursors_b.update(seam_b2.cursors)
-        cursors_b[tb2.net.iteration_count] = \
-            tb2.session._cursor["batch_index"]
         losses_b += log_b2.losses()
         same_b = params_equal(tb2.net, params_a)
         del tb2
@@ -4358,11 +4397,8 @@ def phase_substrate():
         log_c = StepLog()
         tc.net.set_listeners(log_c)
         seam_c = StepSeam(lambda: tc.session)
-        seam_c.run(lambda: tc.fit(token_iterator(rec), epochs=1,
-                                  max_steps=steps - resumed_at))
+        seam_c.run(lambda: tc.fit(token_iterator(rec), epochs=1))
         cursors_c = dict(seam_c.cursors)
-        cursors_c[tc.net.iteration_count] = \
-            tc.session._cursor["batch_index"]
         losses_c = log_c.losses()
         same_c = params_equal(tc.net, params_a)
         del tc

@@ -41,6 +41,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _nvcc
+from ..util import xla as _xla
 
 NEG_INF = -1e30
 _HALF_NEG = NEG_INF / 2
@@ -289,11 +290,31 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def _launched(kernel: _nvcc.CudaKernel, err: int) -> None:
+def _launched(kernel: _nvcc.CudaKernel, err: int, flops: float = 0.0
+              ) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel.name} kernel launch failed: CUDA "
                            f"error {err}")
     kernel.launches += 1
+    if flops:
+        _xla.count_kernel_flops(flops)
+
+
+def attention_pairs(t: int, causal: bool) -> int:
+    """(query, key) pairs one head of a length-``t`` attention scores:
+    ``t²``, or the ``t(t+1)/2`` on and below the diagonal when causal."""
+    return t * (t + 1) // 2 if causal else t * t
+
+
+# matrix-product FLOPs per (query, key) pair and head dimension of each
+# kernel: the forward's S = QKᵀ and PV; dq's recomputed S, dP = dO·Vᵀ and
+# dS·K; dk/dv's recomputed S, dP, Pᵀ·dO and dSᵀ·Q (2 FLOPs a product each)
+FWD_FLOPS_PER_PAIR, DQ_FLOPS_PER_PAIR, DKV_FLOPS_PER_PAIR = 4, 6, 8
+
+
+def _flops(per_pair: int, b: int, h: int, t: int, d: int,
+           causal: bool) -> float:
+    return float(per_pair * b * h * d * attention_pairs(t, causal))
 
 
 def _flash_fwd_cuda(q, k, v, mask, causal: bool, scale: float):
@@ -317,7 +338,7 @@ def _flash_fwd_cuda(q, k, v, mask, causal: bool, scale: float):
         out.data_ptr(), lse.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         b, t, h, float(scale), int(bool(causal)), stream)
-    _launched(FLASH_FWD, err)
+    _launched(FLASH_FWD, err, _flops(FWD_FLOPS_PER_PAIR, b, h, t, d, causal))
     return out, lse
 
 
@@ -352,7 +373,8 @@ def _flash_bwd_dq_cuda(q, k, v, mask, lse, delta, dout, causal: bool,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _launched(FLASH_BWD_DQ, FLASH_BWD_DQ.fn(_DQ_ARGS)(
         1 if q.dtype == torch.bfloat16 else 0, d, *ptrs, dq.data_ptr(),
-        *strides, b, t, h, float(scale), int(bool(causal)), stream))
+        *strides, b, t, h, float(scale), int(bool(causal)), stream),
+        _flops(DQ_FLOPS_PER_PAIR, b, h, t, d, causal))
     return dq
 
 
@@ -367,7 +389,7 @@ def _flash_bwd_dkv_cuda(q, k, v, mask, lse, delta, dout, causal: bool,
     _launched(FLASH_BWD_DKV, FLASH_BWD_DKV.fn(_DKV_ARGS)(
         1 if q.dtype == torch.bfloat16 else 0, d, *ptrs, dk.data_ptr(),
         dv.data_ptr(), *strides, b, t, h, float(scale), int(bool(causal)),
-        stream))
+        stream), _flops(DKV_FLOPS_PER_PAIR, b, h, t, d, causal))
     return dk, dv
 
 

@@ -255,12 +255,75 @@ def _clone_tree(tree):
     return tree
 
 
-def _host_tree(tree):
+# a snapshot's device-to-host copies go through two pinned slots of this
+# many bytes (:func:`_to_host`)
+_HOST_SLOT_BYTES = 64 << 20
+
+
+def _host_leaves(tree, pieces: list):
+    """``tree`` with every tensor replaced by an empty pageable host tensor
+    of its shape; appends each (device bytes, host bytes) pair of flat
+    views to ``pieces``."""
     if isinstance(tree, dict):
-        return {k: _host_tree(v) for k, v in tree.items()}
+        return {k: _host_leaves(v, pieces) for k, v in tree.items()}
     if torch.is_tensor(tree):
-        return tree.to("cpu")
+        src = tree.detach()
+        out = torch.empty(src.shape, dtype=src.dtype, device="cpu")
+        if src.numel():
+            pieces.append((src.contiguous().reshape(-1).view(torch.uint8),
+                           out.reshape(-1).view(torch.uint8)))
+        return out
     return tree
+
+
+def _land(landing: list, k: int) -> None:
+    """Wait for slot ``k``'s copies from the device, then move its bytes to
+    their host tensors."""
+    if landing[k] is None:
+        return
+    from .ingest import wait_event
+    event, outs = landing[k]
+    landing[k] = None
+    wait_event(event)
+    for dst, src in outs:
+        dst.copy_(src)
+
+
+def _to_host(trees: tuple, device) -> list:
+    """Host copies of the device tensors of ``trees`` (a capture's clones).
+    The bytes go through two pinned slots on a stream of this thread's
+    own: a slot's copy from the device is an asynchronous DMA this thread
+    polls for (``ingest.wait_event``), and its bytes then move into
+    pageable host memory by a host copy while the other slot's DMA runs.
+    A copy from the device straight into pageable memory stays inside the
+    CUDA driver for its whole length, and the training thread's kernel
+    launches wait behind it (PERF.md §6)."""
+    pieces: list = []
+    host = [_host_leaves(t, pieces) for t in trees]
+    stream = torch.cuda.Stream(device)
+    slots = [torch.empty(_HOST_SLOT_BYTES, dtype=torch.uint8,
+                         pin_memory=True) for _ in range(2)]
+    landing: list = [None, None]     # per slot: (event, [(host, pinned)])
+    k, off, outs = 0, 0, []
+    for i, (src, dst) in enumerate(pieces):
+        pos = 0
+        while pos < src.numel():
+            n = min(src.numel() - pos, _HOST_SLOT_BYTES - off)
+            view = slots[k][off:off + n]
+            with torch.cuda.stream(stream):
+                view.copy_(src[pos:pos + n], non_blocking=True)
+            outs.append((dst[pos:pos + n], view))
+            off += n
+            pos += n
+            if off == _HOST_SLOT_BYTES or (i == len(pieces) - 1
+                                           and pos == src.numel()):
+                event = torch.cuda.Event()
+                event.record(stream)
+                landing[k] = (event, outs)
+                k, off, outs = 1 - k, 0, []
+                _land(landing, k)   # the next slot's bytes are out
+    _land(landing, 1 - k)
+    return host
 
 
 class TrainingState:
@@ -328,12 +391,8 @@ class TrainingState:
             return
         from .ingest import wait_event
         wait_event(self.event)
-        stream = torch.cuda.Stream(self.device)
-        with torch.cuda.stream(stream):
-            self.params = _host_tree(self.params)
-            self.layer_state = _host_tree(self.layer_state)
-            self.updater_state = _host_tree(self.updater_state)
-        stream.synchronize()
+        self.params, self.layer_state, self.updater_state = _to_host(
+            (self.params, self.layer_state, self.updater_state), self.device)
         self.event = None
 
     def _shim(self):
@@ -1169,14 +1228,11 @@ class DurableTrainer:
         self.session: Optional[DurableSession] = None
 
     def fit(self, data, labels=None, *, epochs: int = 1, mask=None,
-            coalesce: Optional[int] = None,
-            max_steps: Optional[int] = None):
-        """Train until ``epochs`` TOTAL epochs are recorded on the model
-        (or, with ``max_steps``, until this call has taken that many steps;
-        the stop instant is then snapshotted like a preemption's). A run
-        resumed mid-epoch continues that epoch from the restored cursor —
-        replaying zero batches and skipping none — which requires the data
-        source to be seekable."""
+            coalesce: Optional[int] = None):
+        """Train until ``epochs`` TOTAL epochs are recorded on the model.
+        A run resumed mid-epoch continues that epoch from the restored
+        cursor — replaying zero batches and skipping none — which requires
+        the data source to be seekable."""
         net = self.net
         if net.params is None:
             net.init()
@@ -1201,7 +1257,7 @@ class DurableTrainer:
         session = DurableSession(
             net, self.store, data=data, frequency=self.frequency,
             writer=writer, watchdog=watchdog, preemption=preemption,
-            max_steps=max_steps, commit_gate=self.commit_gate,
+            commit_gate=self.commit_gate,
             resuming=resuming_mid_epoch, registry=self.registry)
         self.session = session
         kwargs = {"session": session}

@@ -588,12 +588,11 @@ class _StagedStream:
 
     def __init__(self, source: Iterable[Tuple], *, stage_name: str,
                  device=None, device_put: bool = True, queue_size: int = 2,
-                 registry=None, tracer=None, _plant: Optional[str] = None):
+                 registry=None, tracer=None):
         self.stage_name = stage_name
         self.device_put = device_put
         self._stager = (DeviceStager(device, stage_name=stage_name,
-                                     registry=registry, tracer=tracer,
-                                     _plant=_plant)
+                                     registry=registry, tracer=tracer)
                         if device_put else None)
         self._source = source
         self._pq = ProducerQueue(queue_size)
@@ -656,14 +655,14 @@ class _StagedStream:
 
 def stage(source: Iterable[Tuple], *, stage_name: str = "fit", device=None,
           device_put: bool = True, queue_size: int = 2, registry=None,
-          tracer=None, _plant: Optional[str] = None) -> _StagedStream:
+          tracer=None) -> _StagedStream:
     """Wrap a batch iterable with background device staging onto
     ``device`` (double-buffered by default: one batch staging while one
     waits). ``device_put=False`` keeps batches on the host and only
     overlaps the source's own batch preparation."""
     return _StagedStream(source, stage_name=stage_name, device=device,
                          device_put=device_put, queue_size=queue_size,
-                         registry=registry, tracer=tracer, _plant=_plant)
+                         registry=registry, tracer=tracer)
 
 
 # ----------------------------------------------------------------------

@@ -22,7 +22,10 @@ What carries over is the accounting around a step function:
   ``xla_compile_seconds{fn}`` and the call's FLOPs, counted by
   ``torch.utils.flop_counter.FlopCounterMode`` around that real call
   (no second execution), in ``compiled_flops{fn}`` — the number
-  ``util.ingest``'s live MFU meter divides by wall time;
+  ``util.ingest``'s live MFU meter divides by wall time. The counting
+  mode sees only the operators the dispatcher runs; a hand-written
+  kernel launched outside it (the flash-attention kernels, called
+  through ctypes) reports its own FLOPs by :func:`count_kernel_flops`;
 - :func:`trace_env_key` and :func:`pow2_bucket` as in the reference.
 """
 
@@ -31,6 +34,7 @@ from __future__ import annotations
 import functools
 import logging
 import os
+import threading
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -80,8 +84,25 @@ def compiled_flops_gauge(registry=None):
         "compiled_flops",
         "FLOPs of one call per guarded step function, counted by "
         "torch.utils.flop_counter on the first call of its latest "
-        "signature (measured from the dispatched operators, not an "
-        "analytic formula)", ("fn",))
+        "signature (measured from the dispatched operators, plus the "
+        "FLOPs the hand-written kernels launched in it report)", ("fn",))
+
+
+# the FLOPs hand-written kernels report while compiled_costs counts; a
+# list, so a launch on autograd's backward thread adds to the same tally
+_kernel_tally: Optional[list] = None
+_kernel_tally_lock = threading.Lock()
+
+
+def count_kernel_flops(flops: float) -> None:
+    """Called by the wrapper of a kernel that the dispatcher does not run
+    (so ``FlopCounterMode`` cannot see it) at each launch, with the
+    kernel's matrix-product FLOPs: they are added to the count of a
+    :func:`compiled_costs` call in progress, and ignored otherwise."""
+    tally = _kernel_tally
+    if tally is not None:
+        with _kernel_tally_lock:
+            tally[0] += flops
 
 
 def cost_analysis_enabled() -> bool:
@@ -95,12 +116,22 @@ def compiled_costs(fn: Callable, *args, **kwargs
                    ) -> Tuple[Any, Optional[Dict[str, float]]]:
     """Run ``fn(*args, **kwargs)`` once under ``FlopCounterMode`` and
     return ``(result, {"flops": ...})`` (None when nothing was counted).
-    The call is the real one: its result is the caller's."""
+    The call is the real one: its result is the caller's. The count
+    includes what hand-written kernels launched in the call report
+    (:func:`count_kernel_flops`)."""
+    global _kernel_tally
     from torch.utils.flop_counter import FlopCounterMode
     counter = FlopCounterMode(display=False)
-    with counter:
-        out = fn(*args, **kwargs)
-    flops = float(counter.get_total_flops())
+    outer, tally = _kernel_tally, [0.0]
+    _kernel_tally = tally
+    try:
+        with counter:
+            out = fn(*args, **kwargs)
+    finally:
+        _kernel_tally = outer
+    if outer is not None:
+        count_kernel_flops(tally[0])
+    flops = float(counter.get_total_flops()) + tally[0]
     return out, ({"flops": flops} if flops else None)
 
 

@@ -55,7 +55,7 @@ XPKG_TOL = 1e-4
 # the toy problem (shared by the child process and the parent)
 # ----------------------------------------------------------------------
 
-def build_net(seed=7):
+def build_net(seed=7, device="cpu"):
     from deeplearning4j_tpu_torch.nn.conf import (InputType,
                                                   NeuralNetConfiguration)
     from deeplearning4j_tpu_torch.nn.conf.layers import (DenseLayer,
@@ -67,7 +67,7 @@ def build_net(seed=7):
             .layer(OutputLayer(n_out=CLASSES, activation="softmax",
                                loss="mcxent"))
             .set_input_type(InputType.feed_forward(FEATURES)).build())
-    return MultiLayerNetwork(conf, device="cpu").init()
+    return MultiLayerNetwork(conf, device=device).init()
 
 
 def _toy_arrays(seed=7):
@@ -414,6 +414,32 @@ class TestCommitProtocol:
                          commit_gate=lambda digest: False)
         assert out is None
         assert store.snapshots() == before
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("slot_bytes", [40, 1 << 26])
+    def test_to_host_on_the_card_copies_the_capture(self, monkeypatch,
+                                                    slot_bytes):
+        """The writer's copy through the two pinned slots, at a slot size
+        that splits tensors across slots and at the package's, lands the
+        capture's values while the net trains on in place."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device")
+        from deeplearning4j_tpu_torch.util import durable
+        monkeypatch.setattr(durable, "_HOST_SLOT_BYTES", slot_bytes)
+        net = build_net(device="cuda")
+        net.fit(build_iterator(), epochs=1)
+        state = TrainingState.capture(net)
+        want = [[(k, t.detach().cpu().clone()) for k, t in
+                 durable._leaves(tree, "")]
+                for tree in (net.params, net.state, net.updater_state)]
+        net.fit(build_iterator(), epochs=1)      # updates in place
+        state.to_host()
+        for tree, w in zip((state.params, state.layer_state,
+                            state.updater_state), want):
+            got = durable._leaves(tree, "")
+            assert [k for k, _ in got] == [k for k, _ in w]
+            for (_, g), (_, x) in zip(got, w):
+                assert g.device.type == "cpu" and torch.equal(g, x)
 
     def test_capture_is_a_copy(self, tmp_path):
         net = build_net()

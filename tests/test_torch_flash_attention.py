@@ -118,6 +118,27 @@ def test_cpu_wrapper_runs_the_plain_version():
     assert tfa.FLASH_FWD.launches == before   # no kernel on the CPU
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_launch_reports_kernel_flops_to_the_counter(causal):
+    # the pairs a head scores are the entries its mask keeps, and a
+    # launch's FLOPs reach a compiled_costs count in progress
+    from types import SimpleNamespace
+    from deeplearning4j_tpu_torch.util import xla as txla
+    t = 16
+    kept = torch.ones(t, t).tril() if causal else torch.ones(t, t)
+    assert tfa.attention_pairs(t, causal) == int(kept.sum())
+    kernel = SimpleNamespace(name="probe", launches=0)
+    want = 4.0 * 2 * 3 * 64 * tfa.attention_pairs(t, causal)
+
+    def launch():
+        tfa._launched(kernel, 0, tfa._flops(tfa.FWD_FLOPS_PER_PAIR, 2, 3, t,
+                                            64, causal))
+    _, costs = txla.compiled_costs(launch)
+    assert costs == {"flops": want} and kernel.launches == 1
+    with pytest.raises(RuntimeError, match="probe kernel launch failed"):
+        tfa._launched(kernel, 2, 1.0)
+
+
 @pytest.mark.parametrize("mask_kind", ["none", "padded"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_dense_path_matches_reference(ref, monkeypatch, mask_kind, causal):

@@ -303,6 +303,25 @@ class TestRetraceGuard:
         assert reg.get("compiled_flops").value(fn="t_guard.mm") == 1024.0
         assert reg.get("xla_compile_seconds").count(fn="t_guard.mm") == 1
 
+    def test_first_call_counts_reported_kernel_flops(self):
+        # a kernel launched outside the dispatcher reports its FLOPs; they
+        # join the count of the call in progress and nothing else
+        from deeplearning4j_tpu_torch.util import xla as _xla
+        reg = _metrics.MetricsRegistry()
+        a, b = torch.ones((8, 16)), torch.ones((16, 4))
+
+        def step(x, y):
+            _xla.count_kernel_flops(1000.0)
+            return x @ y
+        guarded = retrace_guard(step, "t_guard.kernel", reg)
+        guarded(a, b)
+        assert guarded.compiled_costs == {"flops": 1024.0 + 1000.0}
+        guarded(a, b)      # not counted again, and not left in any tally
+        _xla.count_kernel_flops(7.0)
+        assert reg.get("compiled_flops").value(fn="t_guard.kernel") == 2024.0
+        _, costs = _xla.compiled_costs(lambda: a @ b)
+        assert costs == {"flops": 1024.0}
+
 
 class TestAsyncFitLoop:
     def test_steady_state_fit_one_signature(self):
