@@ -170,11 +170,26 @@ Phases, in order; any failure propagates and the script exits non-zero:
    sync, the step's wall and device time and kernels with stats on and
    off, and a NaN in one layer's parameter attributed to that layer and
    served by GET /debug/health;
-14. a {"classic": ...}, a {"moe": ...}, a {"slice": ...}, a
-   {"substrate": ...} and a
-   {"fleet": ...} JSON line of those readings, a JSON line of the kernels
-   (launches on the training path and per path, error, times, bound), the
-   card line, and last {"ok": true, "device": {...}}.
+14. distribution: the ring's per-hop entries on a virtual 4-rank ring at
+   the flagship's attention shape [8, 2048, 12, 64] in f32, causal (each
+   kernel must launch 10 times: 4 diagonal and 6 pre-diagonal hops), its
+   out, lse, dq, dk and dv against the monolithic f32 kernels, unmasked
+   and with a ragged mask and a fully masked row (0 and -1e30), each
+   hop's kernel times beside the monolithic f32 and bf16 forward; then a
+   one-rank NCCL group through parallel.initialize: sync and local-SGD
+   (k = 2) ParallelWrapper on the flagship (12 layers) for 2 steps,
+   bitwise equal to plain fit_batch; SequenceParallelGraphTrainer on it
+   (the ring route's step-0 gradients no further from the plain-attention
+   route than the bf16-kernel route's, 2 timed steps in which each kernel
+   launches 24 times); the tensor-, pipeline- and expert-parallel graph
+   trainers at 2 layers (the MoE net 1), bitwise equal to the plain step;
+   a two-host ElasticTrainer fleet on threads whose committed average is
+   the averaging rule's;
+15. a {"classic": ...}, a {"moe": ...}, a {"slice": ...}, a
+   {"substrate": ...}, a {"fleet": ...} and a {"distribution": ...} JSON
+   line of those readings, a JSON line of the kernels (launches on the
+   training path and per path, error, times, bound), the card line, and
+   last {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -219,8 +234,17 @@ from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork  # noqa: E4
 from deeplearning4j_tpu_torch.ops import _nvcc  # noqa: E402
 from deeplearning4j_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from deeplearning4j_tpu_torch.models import transformer as tlm  # noqa: E402
+from deeplearning4j_tpu_torch.ops import attention as tattn  # noqa: E402
+from deeplearning4j_tpu_torch.parallel import (  # noqa: E402
+    ExpertParallelGraphTrainer, GraphPipelineTrainer, ParallelWrapper,
+    SequenceParallelGraphTrainer, TensorParallelGraphTrainer, create_mesh,
+    data_parallel_mesh, distributed)
 from deeplearning4j_tpu_torch.parallel.elastic import (  # noqa: E402
-    FileCoordinationStore)
+    ElasticConfig, ElasticTrainer, FileCoordinationStore,
+    InMemoryCoordinationStore)
+from deeplearning4j_tpu_torch.parallel.elastic import (  # noqa: E402
+    _net_param_leaves as param_leaves,
+    _set_net_params_from_leaves as set_param_leaves)
 from deeplearning4j_tpu_torch.serving import (  # noqa: E402
     FleetRouter, InferenceServer, ReplicaAgent, rolling_set_model)
 from deeplearning4j_tpu_torch.serving.decode import (  # noqa: E402
@@ -234,7 +258,7 @@ from deeplearning4j_tpu_torch.util import ingest  # noqa: E402
 from deeplearning4j_tpu_torch.util import profiling  # noqa: E402
 from deeplearning4j_tpu_torch.util.durable import (  # noqa: E402
     AsyncCheckpointWriter, CheckpointStore, DurableSession, DurableTrainer,
-    skipped_counter)
+    params_digest, skipped_counter)
 from deeplearning4j_tpu_torch.util.metrics import MetricsRegistry  # noqa: E402
 from deeplearning4j_tpu_torch.util.metrics import REGISTRY as METRICS  # noqa: E402
 from deeplearning4j_tpu_torch.util.serialization import (  # noqa: E402
@@ -763,13 +787,6 @@ def plain_fwd(q, k, v, mask, causal, scale):
                                         scale=scale)
 
 
-def faulty_plain_fwd(q, k, v, mask, causal, scale):
-    b, t = q.shape[:2]
-    keep = torch.ones((b, t), device=q.device) if mask is None else mask.clone()
-    keep[:, t // 2:t // 2 + FAULT_KEYS] = 0.0
-    return plain_fwd(q, k, v, keep, causal, scale)
-
-
 def route_diff(a, ref):
     """(max|a - ref| / max|ref|, rms(a - ref) / rms(ref))."""
     d = a - ref
@@ -1139,13 +1156,28 @@ def plain_bwd(q, k, v, mask, out, lse, dout, causal, scale):
                                         causal=causal, scale=scale)
 
 
-def faulty_plain_bwd(q, k, v, mask, out, lse, dout, causal, scale):
-    """The plain backward with one 64-key tile's dk and dv left out."""
-    dq, dk, dv = plain_bwd(q, k, v, mask, out, lse, dout, causal, scale)
-    t = q.shape[1]
-    dk[:, t // 2:t // 2 + FAULT_KEYS] = 0
-    dv[:, t // 2:t // 2 + FAULT_KEYS] = 0
-    return dq, dk, dv
+def fault_kernels(fwd_kernel, bwd_kernel):
+    """(forward, backward) kernel routes with one key tile planted as a
+    fault: the forward leaves FAULT_KEYS keys of its k/v block out, the
+    backward leaves their dk and dv out."""
+    def fwd(q, k, v, mask, causal, scale):
+        b, t = q.shape[:2]
+        keep = (torch.ones((b, t), device=q.device) if mask is None
+                else mask.clone())
+        keep[:, t // 2:t // 2 + FAULT_KEYS] = 0.0
+        return fwd_kernel(q, k, v, keep, causal, scale)
+
+    def bwd(q, k, v, mask, out, lse, dout, causal, scale):
+        dq, dk, dv = bwd_kernel(q, k, v, mask, out, lse, dout, causal, scale)
+        t = q.shape[1]
+        dk[:, t // 2:t // 2 + FAULT_KEYS] = 0
+        dv[:, t // 2:t // 2 + FAULT_KEYS] = 0
+        return dq, dk, dv
+    return fwd, bwd
+
+
+# the plain versions with one 64-key tile planted as a fault
+faulty_plain_fwd, faulty_plain_bwd = fault_kernels(plain_fwd, plain_bwd)
 
 
 def flat_grads(net, x, y):
@@ -4436,6 +4468,550 @@ def phase_substrate():
     return readings, launches
 
 
+# Distribution (parallel/, ops/attention.py's ring). The virtual ring's
+# shape: the flagship's [8, 2048, 12, 64] split over 4 ranks (t_local 512);
+# causal, so 4 diagonal and 6 pre-diagonal hops run (4·5/2), each through
+# the f32 kernel instances. Its out, lse and grads are held against the
+# monolithic f32 kernels on the same operands.
+RING = {"B": 8, "T": 2048, "H": 12, "D": 64, "ranks": 4}
+# against the monolithic f32 kernels and against the plain versions
+# (flash_attention_fwd_plain / _bwd_plain, f32, TF32 off) on the same
+# operands; observed on an H100 (PERF.md, Findings), either reference:
+# out 7.2e-7, lse 9.5e-7, dq 1.0e-6, dk 1.9e-5, dv 1.2e-5 (the dk/dv sums
+# meet the ranks in another order than the key tiles of one call); the
+# bounds about twice that. A 64-key tile left out of one hop reads 0.38-0.93
+RING_TOL = {"out": 1.5e-6, "lse": 2e-6, "grad": 4e-5}
+# the sequence-parallel flagship's ring hops (one diagonal hop a layer at
+# [8, 2048, 12, 64] f32), each carry-entry call of a training step held
+# against the same entry with the plain versions in place of the kernels,
+# on its own inputs, relative (max|d| / max|plain|: the step's gradients
+# at the attention are of order 1e-5 and less). Observed on an H100
+# (PERF.md, Findings): out 2.5e-6, lse 1.9e-7, dq 2.1e-6, dk 4.6e-7, dv 0;
+# the bounds about twice that. A 64-key tile left out reads 0.013-0.11
+SP_HOP_TOL = {"out": 5e-6, "lse": 4e-7, "grad": 4e-6}
+# the trainer's parameters and losses after its 3 steps: equal to plain
+# fit_batch's from the same weights with the attention computed as the
+# ring of one rank computes it (f32 kernels: one diagonal hop's carry fold
+# is exact); its losses (rounded to bf16) within one bf16 step of plain
+# fit_batch's as it is (bf16 kernels)
+BF16_STEP = 2.0 ** -7      # one bf16 step, relative to the value, at most
+# the tensor-, pipeline- and expert-parallel trainers at world 1 run the
+# plain step's operations: parameters after 2 steps within this, relative
+# to each leaf's largest magnitude (bitwise equality is reported)
+TRAINER_TOL = 1e-6
+DIST_LAYERS = 2             # the tp/pp/elastic nets; the MoE net: 1 layer
+ELASTIC_BATCH = 4
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def max_abs(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def max_rel(a, ref) -> float:
+    """max|a - ref| / max|ref| (0 where both are 0; a lse of -1e30, a
+    dead row, counts as 0 on either side)."""
+    a, ref = a.float(), ref.float()
+    dead = ref <= fa.NEG_INF / 2
+    d = torch.where(dead & (a <= fa.NEG_INF / 2), 0.0, a - ref)
+    scale = torch.where(dead, 0.0, ref).abs().max().item()
+    return d.abs().max().item() / scale if scale > 0 else \
+        d.abs().max().item()
+
+
+def ring_errs(out, lse, grads, ref_out, ref_lse, ref_grads):
+    """max|d| of the ring's out, lse [b, t, h] and grads against a
+    reference's (lse [b, h, t])."""
+    errs = {"out": max_abs(out, ref_out),
+            "lse": max_abs(lse, ref_lse.transpose(1, 2))}
+    for name, a, r in zip(("dq", "dk", "dv"), grads, ref_grads):
+        errs[name] = max_abs(a, r)
+    return errs
+
+
+def over(errs, tol):
+    """The entries of ``errs`` past their bound (grads under "grad")."""
+    return {k: e for k, e in errs.items()
+            if not e <= tol.get(k, tol["grad"])}
+
+
+def ring_case(gen, mask_kind):
+    """The virtual ring against the monolithic f32 kernels and against the
+    plain versions on the same operands; then once more with a one-tile
+    fault planted in its first forward and first backward hop, which the
+    plain bound must catch. (launches per kernel, errors by reference,
+    the ring's operands)."""
+    b, t, h, d, n = (RING[k] for k in ("B", "T", "H", "D", "ranks"))
+    q, k, v, g = (torch.randn((b, t, h, d), generator=gen, device=DEV)
+                  for _ in range(4))
+    mask = None
+    if mask_kind == "ragged":
+        mask = (torch.rand((b, t), generator=gen, device=DEV) > 0.25).float()
+        mask[1] = 0.0                    # a batch row with no key at all
+        mask[0, t // 2:] = 0.0           # ragged tail over two shards
+    s = d ** -0.5
+
+    def ring():
+        out, lse = tattn.virtual_ring_fwd(q, k, v, mask, n, causal=True)
+        return out, lse, tattn.virtual_ring_bwd(q, k, v, mask, out, lse, g,
+                                                n, causal=True)
+    for kn in KERNELS:
+        kn.launches = 0
+    out, lse, grads = ring()
+    torch.cuda.synchronize()
+    launches = {kn.name: kn.launches for kn in KERNELS}
+    ref_out, ref_lse = fa._flash_fwd_cuda(q, k, v, mask, True, s)
+    ref_grads = fa._flash_bwd_cuda(q, k, v, mask, ref_out, ref_lse, g, True,
+                                   s)
+    pl_out, pl_lse = fa.flash_attention_fwd_plain(q, k, v, mask, causal=True,
+                                                  scale=s)
+    pl_grads = fa.flash_attention_bwd_plain(q, k, v, mask, pl_out, pl_lse, g,
+                                            causal=True, scale=s)
+    errs = {"kernel": ring_errs(out, lse, grads, ref_out, ref_lse,
+                                ref_grads),
+            "plain": ring_errs(out, lse, grads, pl_out, pl_lse, pl_grads)}
+    if mask is not None:
+        if not (bool((out[1] == 0).all())
+                and bool((lse[1] == fa.NEG_INF).all())):
+            raise AssertionError("ring: a fully masked row is not 0 / -1e30")
+    del out, lse, grads, ref_out, ref_lse, ref_grads
+    calls = {"fwd": 0, "bwd": 0}
+    bad_fwd, bad_bwd = fault_kernels(fa._flash_fwd_cuda, fa._flash_bwd_cuda)
+    kernel_fwd, kernel_bwd = fa._flash_fwd_cuda, fa._flash_bwd_cuda
+
+    def first_fwd(*a):
+        calls["fwd"] += 1
+        return (bad_fwd if calls["fwd"] == 1 else kernel_fwd)(*a)
+
+    def first_bwd(*a):
+        calls["bwd"] += 1
+        return (bad_bwd if calls["bwd"] == 1 else kernel_bwd)(*a)
+    with kernel_routes(fwd=first_fwd, bwd=first_bwd):
+        out, lse, grads = ring()
+    errs["fault"] = ring_errs(out, lse, grads, pl_out, pl_lse, pl_grads)
+    return launches, errs, (q, k, v, g, mask)
+
+
+def ring_timing(q, k, v, g):
+    """Per-hop and summed kernel times of the virtual ring beside the
+    monolithic f32 and bf16 kernels, with the bounds of a hop."""
+    b, t, h, d, n = (RING[k] for k in ("B", "T", "H", "D", "ranks"))
+    tl = t // n
+    s = d ** -0.5
+    qh, kh, vh, gh = (x[:, :tl].contiguous() for x in (q, k, v, g))
+    res = {}
+    for causal, kind in ((False, "full"), (True, "diag")):
+        out, lse = fa._flash_fwd_cuda(qh, kh, vh, None, causal, s)
+        res[f"hop_fwd_{kind}_ms"] = cuda_ms(
+            lambda: fa._flash_fwd_cuda(qh, kh, vh, None, causal, s), 20)
+        res[f"hop_bwd_{kind}_ms"] = cuda_ms(
+            lambda: fa._flash_bwd_cuda(qh, kh, vh, None, out, lse, gh,
+                                       causal, s), 20)
+        bound, by = flash_bound(b, tl, h, d, causal, None, 4)
+        res[f"hop_fwd_{kind}_bound_ms"], res[f"hop_fwd_{kind}_bound_by"] = \
+            bound, by
+    full, diag = n * (n - 1) // 2, n
+    res["hops_fwd_sum_ms"] = (full * res["hop_fwd_full_ms"]
+                              + diag * res["hop_fwd_diag_ms"])
+    res["hops_bwd_sum_ms"] = (full * res["hop_bwd_full_ms"]
+                              + diag * res["hop_bwd_diag_ms"])
+    res["ring_fwd_ms"] = cuda_ms(
+        lambda: tattn.virtual_ring_fwd(q, k, v, None, n, causal=True), 5)
+    out, lse = tattn.virtual_ring_fwd(q, k, v, None, n, causal=True)
+    res["ring_bwd_ms"] = cuda_ms(
+        lambda: tattn.virtual_ring_bwd(q, k, v, None, out, lse, g, n,
+                                       causal=True), 5)
+    res["mono_fwd_f32_ms"] = cuda_ms(
+        lambda: fa._flash_fwd_cuda(q, k, v, None, True, s), 10)
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    res["mono_fwd_bf16_ms"] = cuda_ms(
+        lambda: fa._flash_fwd_cuda(qb, kb, vb, None, True, s), 10)
+    return res
+
+
+@contextlib.contextmanager
+def ring_entries_held():
+    """Within the block, each call of the ring's carry entries
+    (``flash_attention_block``, ``flash_attention_bwd_block``) is held
+    against the same entry with the plain versions in place of the
+    kernels, on its own inputs; the first call of each also runs with a
+    one-tile fault planted in its kernel. Yields ({"out", "lse", "dq",
+    "dk", "dv": [max|d| per call]}, {the planted fault's max|d|})."""
+    errs = {k: [] for k in ("out", "lse", "dq", "dk", "dv")}
+    faults = {}
+    block, bwd_block = fa.flash_attention_block, fa.flash_attention_bwd_block
+
+    def fwd_errs(carry, ref):
+        (o, l), (ro, rl) = (fa.flash_carry_finalize(carry),
+                            fa.flash_carry_finalize(ref))
+        return {"out": max_rel(o, ro), "lse": max_rel(l, rl)}
+
+    def held_block(q, k, v, carry, **kw):
+        got = block(q, k, v, carry, **kw)
+        with kernel_routes(fwd=plain_fwd):
+            want = block(q, k, v, carry, **kw)
+        for name, e in fwd_errs(got, want).items():
+            errs[name].append(e)
+        if "out" not in faults:
+            bad_fwd, _ = fault_kernels(fa._flash_fwd_cuda, None)
+            with kernel_routes(fwd=bad_fwd):
+                faults.update(fwd_errs(block(q, k, v, carry, **kw), want))
+        return got
+
+    def held_bwd_block(q, k, v, out, lse, dout, **kw):
+        got = bwd_block(q, k, v, out, lse, dout, **kw)
+        with kernel_routes(bwd=plain_bwd):
+            want = bwd_block(q, k, v, out, lse, dout, **kw)
+        for name, a, r in zip(("dq", "dk", "dv"), got, want):
+            errs[name].append(max_rel(a, r))
+        if "dq" not in faults:
+            _, bad_bwd = fault_kernels(None, fa._flash_bwd_cuda)
+            with kernel_routes(bwd=bad_bwd):
+                bad = bwd_block(q, k, v, out, lse, dout, **kw)
+            faults.update({name: max_rel(a, r) for name, a, r in
+                           zip(("dq", "dk", "dv"), bad, want)})
+        return got
+
+    fa.flash_attention_block = held_block
+    fa.flash_attention_bwd_block = held_bwd_block
+    try:
+        yield errs, faults
+    finally:
+        fa.flash_attention_block, fa.flash_attention_bwd_block = \
+            block, bwd_block
+
+
+class RingPrecisionFlash(torch.autograd.Function):
+    """Attention as the flash ring of one rank computes it, in one kernel
+    call: q, k, v and the cotangent cast to f32, the f32 kernels, the
+    results cast back."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        q32, k32, v32 = (tattn._f32(a) for a in (q, k, v))
+        out32, lse = fa._flash_fwd_cuda(q32, k32, v32, None, causal, scale)
+        ctx.save_for_backward(q32, k32, v32, out32, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.dtypes = (q.dtype, k.dtype, v.dtype)
+        return out32.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        q32, k32, v32, out32, lse = ctx.saved_tensors
+        grads = fa._flash_bwd_cuda(q32, k32, v32, None, out32, lse,
+                                   tattn._f32(g), ctx.causal, ctx.scale)
+        return (*(a.to(dt) for a, dt in zip(grads, ctx.dtypes)), None, None)
+
+
+@contextlib.contextmanager
+def ring_precision_attention():
+    """Within the block, the single-device flash attention runs as
+    :class:`RingPrecisionFlash` (unmasked calls only)."""
+    saved = fa.flash_attention
+
+    def attend(q, k, v, causal=False, scale=None, mask=None):
+        if mask is not None:
+            raise ValueError("ring_precision_attention takes no mask")
+        return RingPrecisionFlash.apply(q, k, v, bool(causal),
+                                        fa._resolve_scale(scale, q.shape[-1]))
+    fa.flash_attention = attend
+    try:
+        yield
+    finally:
+        fa.flash_attention = saved
+
+
+def flagship_net(layers, moe=0):
+    V, D, H, F = (FLAGSHIP[k] for k in "VDHF")
+    conf = transformer_lm(V, n_layers=layers, d_model=D, n_heads=H, d_ff=F,
+                          dtype="mixed_bf16", input_ids=True, seed=SEED,
+                          moe_experts=moe, moe_top_k=2)
+    return ComputationGraph(conf).init()
+
+
+def max_rel_diff(a, b):
+    """(largest per-leaf relative difference of two nets' parameters,
+    bitwise equal?)."""
+    worst, same = 0.0, True
+    pa, pb = a.params, b.params
+    for v in pa:
+        for k in pa[v]:
+            x, y = pa[v][k].detach(), pb[v][k].detach()
+            same = same and bool(torch.equal(x, y))
+            scale = max(y.abs().max().item(), 1e-30)
+            worst = max(worst, (x - y).abs().max().item() / scale)
+    return worst, same
+
+
+def step_times(fn, reps=2):
+    """[(wall ms, device ms)] of ``reps`` calls of ``fn``."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(((time.perf_counter() - t0) * 1e3,
+                    start.elapsed_time(end)))
+    return out
+
+
+def phase_distribution():
+    """The distribution slice on the card: the virtual 4-rank ring at the
+    flagship shape, then world-1 NCCL training through every trainer."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    report = {}
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    n = RING["ranks"]
+    want = n * (n + 1) // 2
+    for mask_kind in ("none", "ragged"):
+        launches, errs, ops = ring_case(gen, mask_kind)
+        for ref, e in errs.items():
+            print(f"virtual ring {n} ranks, {mask_kind} mask, against the "
+                  f"{ref if ref != 'fault' else 'plain (one tile planted)'}"
+                  f": max|d| " + ", ".join(f"{k} {x:.3g}"
+                                           for k, x in e.items()))
+        print(f"virtual ring launches {launches}")
+        if any(c != want for c in launches.values()):
+            raise AssertionError(f"virtual ring launched {launches}, "
+                                 f"expected each kernel {want} times")
+        for ref in ("kernel", "plain"):
+            if over(errs[ref], RING_TOL):
+                raise AssertionError(f"virtual ring off the {ref} version: "
+                                     f"{over(errs[ref], RING_TOL)} past "
+                                     f"{RING_TOL}")
+        caught = over(errs["fault"], RING_TOL)
+        if not {"out", "dk", "dv"} <= set(caught):
+            raise AssertionError(f"a one-tile fault in the ring passes its "
+                                 f"bound: {errs['fault']}")
+        report[f"ring_{mask_kind}_err"] = errs
+        if mask_kind == "none":
+            report["ring_times"] = ring_timing(*ops[:4])
+        del ops
+    print("virtual ring times (ms): " + ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in report["ring_times"].items()))
+
+    distributed.initialize(f"localhost:{free_port()}", num_processes=1,
+                           process_id=0, device="cuda")
+    try:
+        report.update(distribution_training())
+        report["elastic"] = elastic_on_card()
+    finally:
+        distributed.shutdown()
+    return report
+
+
+def distribution_training():
+    V, L, T, B = (FLAGSHIP[k] for k in "VLTB")
+    report = {"backend": torch.distributed.get_backend(),
+              "world": torch.distributed.get_world_size()}
+    ids = np.random.default_rng(SEED + 21).integers(
+        0, V, (B, T + 1)).astype(np.int32)
+    x = torch.as_tensor(ids[:, :-1], device=DEV)
+    y = torch.as_tensor(ids[:, 1:], device=DEV)
+
+    # data parallel: sync and local SGD (k = 2) against the plain step
+    plain = flagship_net(L)
+    plain_losses = [float(plain.fit_batch(x, y)) for _ in range(2)]
+    for mode, k in (("sync", 1), ("local_sgd_k2", 2)):
+        net = flagship_net(L)
+        pw = ParallelWrapper(net, mesh=data_parallel_mesh(),
+                             averaging_frequency=k)
+        losses = [float(pw.fit_batch(x, y)) for _ in range(2)]
+        pw.finish()
+        worst, same = max_rel_diff(net, plain)
+        print(f"data parallel {mode}, world 1 over {report['backend']}: "
+              f"losses {losses} (plain {plain_losses}); parameters "
+              f"{'bitwise equal' if same else f'max rel {worst:.3g}'}")
+        if not (same and losses == plain_losses):
+            raise AssertionError(f"{mode} parameters differ from the plain "
+                                 "fit_batch")
+        report[f"dp_{mode}"] = {"losses": losses, "bitwise": same}
+        net._data_parallel = None
+        del net, pw
+    torch.cuda.empty_cache()
+
+    # the slice's main path: the flagship sequence-parallel, the ring of
+    # one rank through the kernels (one diagonal hop a layer). A first
+    # step holds every ring hop against the plain versions on its own
+    # inputs (and shows the bound catches a planted tile); then the
+    # counted, timed steps; then the parameters against plain fit_batch
+    net = flagship_net(L)
+    sp = SequenceParallelGraphTrainer(net, create_mesh({"seq": 1}))
+    with ring_entries_held() as (hop_errs, fault_errs):
+        sp_losses = [float(sp.fit_batch(x, y))]
+    hops = {k: max(e) for k, e in hop_errs.items()}
+    print(f"sequence parallel flagship, its first step's {len(hop_errs['out'])}"
+          f" forward and {len(hop_errs['dq'])} backward ring hops against "
+          f"the plain versions: max|d|/max|plain| " + ", ".join(
+              f"{k} {e:.3g}" for k, e in hops.items())
+          + "; with one tile planted: " + ", ".join(
+              f"{k} {e:.3g}" for k, e in fault_errs.items()))
+    if len(hop_errs["out"]) != L or len(hop_errs["dq"]) != L:
+        raise AssertionError(f"the ring ran {len(hop_errs['out'])} forward "
+                             f"and {len(hop_errs['dq'])} backward hops, "
+                             f"expected {L} each")
+    if over(hops, SP_HOP_TOL):
+        raise AssertionError(f"sequence-parallel ring hops off the plain "
+                             f"versions: {over(hops, SP_HOP_TOL)} past "
+                             f"{SP_HOP_TOL}")
+    if not {"out", "dk", "dv"} <= set(over(fault_errs, SP_HOP_TOL)):
+        raise AssertionError(f"a one-tile fault in the ring's hop passes "
+                             f"the bound: {fault_errs}")
+    for kn in KERNELS:
+        kn.launches = 0
+    times = step_times(lambda: sp_losses.append(float(sp.fit_batch(x, y))))
+    ring_launches = {kn.name: kn.launches for kn in KERNELS}
+    # the plain step with its attention computed as the ring of one rank
+    # computes it (f32 kernels, one call): the same operations, so equal
+    net_ref = flagship_net(L)
+    with ring_precision_attention():
+        same_losses = [float(net_ref.fit_batch(x, y)) for _ in sp_losses]
+    worst, same = max_rel_diff(net, net_ref)
+    del net_ref
+    # the plain step as it is (bf16 kernels): the losses to the bf16 step
+    net_ref = flagship_net(L)
+    ref_losses = [float(net_ref.fit_batch(x, y)) for _ in sp_losses]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(sp_losses, ref_losses))
+    print(f"sequence parallel flagship (seq 1, ring route): losses "
+          f"{sp_losses}; the plain step's in the ring's precision "
+          f"{same_losses}, parameters after {len(sp_losses)} steps "
+          f"{'bitwise equal' if same else f'max rel {worst:.4g}'}; the "
+          f"plain step's (bf16 kernels) {ref_losses}; launches "
+          f"{ring_launches}; step wall/device ms "
+          + ", ".join(f"{w:.2f}/{d:.2f}" for w, d in times))
+    if any(c != 2 * L for c in ring_launches.values()):
+        raise AssertionError(f"the ring route launched {ring_launches}, "
+                             f"expected each kernel {2 * L} times")
+    if not (same and same_losses == sp_losses):
+        raise AssertionError(f"the sequence-parallel trainer differs from "
+                             f"plain fit_batch in the ring's precision: "
+                             f"parameters max rel {worst}, losses "
+                             f"{sp_losses} against {same_losses}")
+    if not loss_rel <= BF16_STEP:
+        raise AssertionError(f"the sequence-parallel losses {sp_losses} "
+                             f"are off the plain step's {ref_losses} by "
+                             f"more than one bf16 step")
+    report["sp"] = {"losses": sp_losses, "plain_losses": ref_losses,
+                    "ring_precision_losses": same_losses,
+                    "hop_err": hops, "hop_fault_err": fault_errs,
+                    "bitwise": same, "wall_device_ms": times}
+    del net, net_ref, sp
+    torch.cuda.empty_cache()
+
+    # tensor, pipeline and expert parallel at world 1, flagship widths
+    for name, make, moe in (
+            ("tp", lambda n: TensorParallelGraphTrainer(
+                n, create_mesh({"model": 1})), 0),
+            ("pp", lambda n: GraphPipelineTrainer(
+                n, create_mesh({"pp": 1})), 0),
+            ("ep", lambda n: ExpertParallelGraphTrainer(
+                n, create_mesh({"ep": 1})), 8)):
+        layers = 1 if moe else DIST_LAYERS
+        net, ref = flagship_net(layers, moe), flagship_net(layers, moe)
+        tr = make(net)
+        losses = [float(tr.fit_batch(x, y)) for _ in range(2)]
+        if name == "pp":
+            tr.sync_to_net()
+        ref_l = [float(ref.fit_batch(x, y)) for _ in range(2)]
+        worst, same = max_rel_diff(net, ref)
+        print(f"{name} trainer (world 1, {layers} layer(s)): losses {losses} "
+              f"(plain {ref_l}); parameters "
+              f"{'bitwise equal' if same else f'max rel {worst:.3g}'}")
+        if not worst <= TRAINER_TOL:
+            raise AssertionError(f"{name} trainer off the plain step by "
+                                 f"{worst}")
+        report[name] = {"losses": losses, "plain_losses": ref_l,
+                        "max_rel": worst, "bitwise": same}
+        del net, ref, tr
+        torch.cuda.empty_cache()
+    report["ring_launches"] = ring_launches
+    return report
+
+
+def elastic_on_card():
+    """Two in-process hosts on threads, 2 rounds of one step, staleness 0:
+    the committed average is the JAX package's rule (each round's float64
+    mean of the hosts' deltas, the canonical p0 + ΣR) recomputed here."""
+    V, T = FLAGSHIP["V"], FLAGSHIP["T"]
+    rounds = 2
+
+    def batch_fn(host):
+        def fn(r, step):
+            rng = np.random.default_rng(SEED + 1000 * host + 10 * r + step)
+            ids = rng.integers(0, V, (ELASTIC_BATCH, T + 1)).astype(np.int32)
+            return (torch.as_tensor(ids[:, :-1], device=DEV),
+                    torch.as_tensor(ids[:, 1:], device=DEV))
+        return fn
+
+    store = InMemoryCoordinationStore()
+    trainers, errors, threads = [], [], []
+    for i, host in enumerate(("h0", "h1")):
+        cfg = ElasticConfig(fleet=("h0", "h1"), host=host, steps_per_round=1,
+                            max_staleness=0, lease_s=120.0, poll_s=0.01)
+        tr = ElasticTrainer(flagship_net(DIST_LAYERS), store, cfg,
+                            registry=MetricsRegistry())
+        trainers.append(tr)
+
+        def run(tr=tr, i=i):
+            try:
+                tr.fit(batch_fn(i), rounds=rounds)
+            except Exception as e:          # reported below
+                errors.append(repr(e))
+        threads.append(threading.Thread(target=run, daemon=True))
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    wall = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"elastic fleet failed: {errors}")
+    digests = {tr.final_digest for tr in trainers}
+    # the rule, replayed on two plain nets
+    nets = [flagship_net(DIST_LAYERS) for _ in range(2)]
+    fns = [batch_fn(0), batch_fn(1)]
+    p0 = param_leaves(nets[0])
+    acc = [a.astype(np.float64) for a in p0]
+    for r in range(rounds):
+        deltas = []
+        for net_, fn in zip(nets, fns):
+            before = param_leaves(net_)
+            net_.fit_batch(*fn(r, 0))
+            deltas.append([a - b for a, b in zip(param_leaves(net_),
+                                                 before)])
+        red = [(deltas[0][i].astype(np.float64)
+                + deltas[1][i].astype(np.float64)) / 2.0
+               for i in range(len(p0))]
+        acc = [a + r_ for a, r_ in zip(acc, red)]
+        for net_, own in zip(nets, deltas):
+            set_param_leaves(net_, [(p.astype(np.float64)
+                               + (red[i] - own[i].astype(np.float64))
+                               ).astype(p.dtype)
+                                    for i, p in enumerate(
+                                        param_leaves(net_))])
+    set_param_leaves(nets[0], [a.astype(p.dtype) for a, p in zip(acc, p0)])
+    oracle = params_digest(nets[0].params, None, 0)
+    print(f"elastic fleet on the card: 2 hosts, {rounds} rounds, "
+          f"{wall:.3f} s; digests agree {len(digests) == 1}, equal to the "
+          f"averaging rule's {digests == {oracle}}")
+    if digests != {oracle}:
+        raise AssertionError("the elastic fleet's committed average is not "
+                             "the averaging rule's")
+    return {"hosts": 2, "rounds": rounds, "wall_s": wall, "agreed": True}
+
+
 # Past this many seconds the run dumps every thread's stack to stderr and
 # exits non-zero: a hang or a slow machine then shows where it was, before
 # an outer time limit (1200 s) kills the process with nothing said.
@@ -4483,6 +5059,7 @@ def main():
     slice_ = timed_phase("slice main path", phase_slice)
     timed_phase("decode main path", phase_decode)
     fleet, fleet_launches = timed_phase("fleet main path", phase_fleet)
+    distribution = timed_phase("distribution", phase_distribution)
 
     src = "deeplearning4j_tpu_torch/ops/csrc/"
     ref = "deeplearning4j_tpu/ops/flash_attention.py:"
@@ -4518,7 +5095,8 @@ def main():
             "moe": moe_launches["training"][k["name"]],
             "moe_forward": moe_launches["forward"][k["name"]],
             "moe_remat": moe_launches["remat"][k["name"]],
-            "substrate": substrate_launches[k["name"]]}
+            "substrate": substrate_launches[k["name"]],
+            "ring": distribution["ring_launches"][k["name"]]}
     total = f"script {time.perf_counter() - T_START:.3f} s"
     print(total)
     print(f"chip_smoke: {total}", file=sys.stderr, flush=True)
@@ -4527,6 +5105,7 @@ def main():
     print(json.dumps({"slice": slice_}))
     print(json.dumps({"substrate": substrate}))
     print(json.dumps(fleet))
+    print(json.dumps({"distribution": distribution}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

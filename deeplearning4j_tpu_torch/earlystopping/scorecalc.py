@@ -1,8 +1,8 @@
 """Score calculators (counterpart of the JAX package's
 ``earlystopping/scorecalc.py``; parity: reference
-``scorecalc/DataSetLossCalculator``). The reference's ``mesh=`` option
-(held-out batches sharded over a device mesh) waits for the port of the
-distribution layer."""
+``scorecalc/DataSetLossCalculator``). ``mesh=`` shards the held-out
+batches over a device mesh through ``parallel.evaluation.ShardedEvaluator``
+(the analog of the reference's ``SparkDataSetLossCalculator``)."""
 
 from __future__ import annotations
 
@@ -18,13 +18,25 @@ def _is_graph(net) -> bool:
 
 class DataSetLossCalculator(ScoreCalculator):
     """Average loss over a held-out iterator (parity:
-    ``DataSetLossCalculator.java`` with ``average=true``)."""
+    ``DataSetLossCalculator.java`` with ``average=true``). Pass ``mesh`` to
+    shard the held-out batches over a device mesh."""
 
-    def __init__(self, iterator, average: bool = True):
+    def __init__(self, iterator, average: bool = True, mesh=None):
         self.iterator = iterator
         self.average = average
+        self.mesh = mesh
+        self._evaluator = None
+
+    def _sharded(self, net):
+        from ..parallel.evaluation import ShardedEvaluator
+        if self._evaluator is None or self._evaluator.net is not net:
+            self._evaluator = ShardedEvaluator(net, self.mesh)
+        return self._evaluator
 
     def calculate_score(self, net) -> float:
+        if self.mesh is not None:
+            return self._sharded(net).score(
+                self.iterator, average=self.average)
         total, n = 0.0, 0
         for ds in self.iterator:
             x, y = ds.features, ds.labels
@@ -43,9 +55,20 @@ class EvaluationScoreCalculator(ScoreCalculator):
     """1 - accuracy on a held-out iterator (lower is better, so early stopping
     maximizes accuracy)."""
 
-    def __init__(self, iterator):
+    def __init__(self, iterator, mesh=None):
         self.iterator = iterator
+        self.mesh = mesh
+        self._evaluator = None
+
+    def _sharded(self, net):
+        from ..parallel.evaluation import ShardedEvaluator
+        if self._evaluator is None or self._evaluator.net is not net:
+            self._evaluator = ShardedEvaluator(net, self.mesh)
+        return self._evaluator
 
     def calculate_score(self, net) -> float:
-        ev = net.evaluate(self.iterator)
+        if self.mesh is not None:
+            ev = self._sharded(net).evaluate(self.iterator)
+        else:
+            ev = net.evaluate(self.iterator)
         return 1.0 - ev.accuracy()

@@ -206,13 +206,17 @@ def masked_denominator(mask: Optional[torch.Tensor], labels, batch_size: int,
         ``sum(any(mask, axis=-1))``.
     ``sparse=True`` (id-labelled losses, :func:`is_sparse`) declares that
     labels carry no class axis, so an equal-ndim mask is per-row there —
-    decided by the loss identity, never by the label dtype."""
+    decided by the loss identity, never by the label dtype. Inside a
+    ``parallel.collectives.batch_split`` the count is the global one, summed
+    over the ranks the batch is split over before the floor of 1."""
+    from .parallel.collectives import global_count
     if mask is None:
-        return float(batch_size)
+        return global_count(float(batch_size), examples_only=True)
     if mask.ndim == labels.ndim and not sparse:
         row_active = torch.amax(mask, dim=-1)    # per-output mask
-        return torch.clamp(torch.sum(row_active), min=1.0)
-    return torch.clamp(torch.sum(mask), min=1.0)  # per-row (example/timestep)
+        return torch.clamp(global_count(torch.sum(row_active)), min=1.0)
+    # per-row (example/timestep)
+    return torch.clamp(global_count(torch.sum(mask)), min=1.0)
 
 
 def score(loss_name: str, labels, pre_output, activation: str,

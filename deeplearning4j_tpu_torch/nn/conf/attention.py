@@ -204,7 +204,9 @@ class SelfAttentionLayer(Layer):
 
     def apply(self, params, x, *, state=None, train=False, generator=None,
               mask=None, policy=None):
-        from ...ops.attention import dot_product_attention
+        from ...ops.attention import (active_sequence_sharding,
+                                      dot_product_attention,
+                                      make_ring_attention)
         policy = policy or _dtypes.FLOAT32
         x = self._dropout_in(x, train, generator)
         if (not train and mask is None and self.max_cache_t is not None
@@ -214,7 +216,19 @@ class SelfAttentionLayer(Layer):
                                          state)
         # strided [b, t, h, d] views: the flash kernel reads them in place
         q, k, v = self._project_qkv(params, policy.cast_to_compute(x))
-        att = dot_product_attention(q, k, v, causal=self.causal, mask=mask)
+        seq_ctx = active_sequence_sharding()
+        if seq_ctx is not None:
+            # sequence-parallel route: the time axis is sharded over the
+            # mesh, and the one op that mixes timesteps runs as ring
+            # attention; key masks travel with their K/V shards
+            mesh, seq_axis, batch_axis = seq_ctx
+            ring = make_ring_attention(mesh, seq_axis, causal=self.causal,
+                                       batch_axis=batch_axis,
+                                       with_mask=mask is not None)
+            att = ring(q, k, v) if mask is None else ring(q, k, v, mask)
+        else:
+            att = dot_product_attention(q, k, v, causal=self.causal,
+                                        mask=mask)
         out = self._project_out(params, att)
         if mask is not None:
             out = out * mask[:, :, None].to(out.dtype)

@@ -139,23 +139,50 @@ class MoELayer(Layer):
         xc = policy.cast_to_compute(x)
         b, t, d = xc.shape
         e, h = self.n_experts, self.d_hidden
+        from ...parallel import collectives as _coll
         gates, keep, weights = self.route(params, xc)
         gate_dt = gates.dtype
         wc = weights.to(xc.dtype).reshape(b * t, e)
-        # every expert on every token: [bt, d] @ [d, E·h]
-        w1 = params["w1"].to(xc.dtype).permute(1, 0, 2).reshape(d, e * h)
-        hid = torch.relu(torch.matmul(xc.reshape(b * t, d), w1)
-                         + params["b1"].to(xc.dtype).reshape(e * h))
+        xe = xc.reshape(b * t, d)
+        # expert parallelism: this rank holds a block of the experts
+        # (parallel.expert); it computes that block, the blocks' outputs
+        # are summed over the group
+        group = _coll.active_expert_group()
+        e_here = params["w1"].shape[0]
+        if e_here != e:
+            if group is None or e_here * _coll.group_size(group) != e:
+                raise ValueError(f"{e_here} of {e} experts outside an "
+                                 "expert-split group that holds the rest")
+            first = _coll.group_rank(group) * e_here
+            wc = _coll.copy_in(wc, group)[:, first:first + e_here]
+            xe = _coll.copy_in(xe, group)
+        # every expert (of the block) on every token: [bt, d] @ [d, E·h]
+        w1 = params["w1"].to(xc.dtype).permute(1, 0, 2).reshape(d, e_here * h)
+        hid = torch.relu(torch.matmul(xe, w1)
+                         + params["b1"].to(xc.dtype).reshape(e_here * h))
         # each expert's hidden scaled by its gate weight, then one GEMM sums
         # the experts' outputs: [bt, E·h] @ [E·h, n_out]
-        hid = (hid.view(b * t, e, h) * wc[:, :, None]).view(b * t, e * h)
-        w2 = params["w2"].to(xc.dtype).reshape(e * h, self.n_out)
+        hid = (hid.view(b * t, e_here, h) * wc[:, :, None]).view(
+            b * t, e_here * h)
+        w2 = params["w2"].to(xc.dtype).reshape(e_here * h, self.n_out)
         y = (torch.matmul(hid, w2)
-             + torch.matmul(wc, params["b2"].to(xc.dtype))
-             ).view(b, t, self.n_out)
+             + torch.matmul(wc, params["b2"].to(xc.dtype)))
+        if e_here != e:
+            y = _coll.sum_out(y, group)
+        y = y.view(b, t, self.n_out)
         # Shazeer-style load balancing: E · Σ_e mean gate · mean keep
         keep_f = keep.to(gate_dt)
-        if mask is not None:
+        if _coll.active_batch_groups():
+            # the tokens are split over ranks: the fractions are global
+            # means, and one rank's share of the summed loss carries aux
+            m = (torch.ones((b, t, 1), dtype=gate_dt, device=xc.device)
+                 if mask is None else mask.to(gate_dt)[:, :, None])
+            denom = torch.clamp_min(_coll.global_count(m.sum()), 1.0)
+            gate_frac = _coll.global_sum((gates * m).sum(dim=(0, 1))) / denom
+            keep_frac = _coll.global_count((keep_f * m).sum(dim=(0, 1))) / denom
+            if mask is not None:
+                y = y * m.to(y.dtype)
+        elif mask is not None:
             m = mask.to(gate_dt)[:, :, None]
             denom = torch.clamp_min(m.sum(), 1.0)
             gate_frac = (gates * m).sum(dim=(0, 1)) / denom
@@ -164,7 +191,7 @@ class MoELayer(Layer):
         else:
             gate_frac = gates.mean(dim=(0, 1))
             keep_frac = keep_f.mean(dim=(0, 1))
-        aux = e * torch.sum(gate_frac * keep_frac)
+        aux = _coll.count_once(e * torch.sum(gate_frac * keep_frac))
         if squeeze:
             y = y[:, 0, :]
         out_state = dict(state or {})

@@ -45,6 +45,7 @@ cache's ``"pos"``).
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 from typing import Any, Dict, List, Optional
 
@@ -124,6 +125,8 @@ class ComputationGraph(torch.nn.Module):
         # pure graph structure
         self._mb_maps: Dict[int, Dict[str, int]] = {}
         self._seg_plan = None
+        # set by parallel.ParallelWrapper: the data-parallel step
+        self._data_parallel = None
 
     def _vertex_layer(self, name: str):
         v = self.conf.vertices[name]
@@ -648,7 +651,10 @@ class ComputationGraph(torch.nn.Module):
                     total = total + l1 * torch.sum(torch.abs(w))
                 if l2:
                     total = total + 0.5 * l2 * torch.sum(torch.square(w))
-        return total
+        # one share of the summed loss carries the penalty when the batch
+        # is split over ranks
+        from ..parallel.collectives import count_once
+        return count_once(total)
 
     def _stage(self, inputs, labels, masks):
         """Inputs, labels and masks as lists of tensors on the device."""
@@ -776,18 +782,34 @@ class ComputationGraph(torch.nn.Module):
         if self._updater is None:
             self.init_updater()
         t = self.conf.training
+        dp = self._data_parallel
+        if dp is not None:
+            if rnn_state is not None:
+                raise ValueError("truncated BPTT does not run under "
+                                 "ParallelWrapper")
+            inputs, labels, masks = dp.shard(inputs, labels, masks)
         gen = self._generator(f"update_{self._update_count}")
         new_states: Dict[str, Any] = {}
         states = self._states_map(rnn_state)
-        if stats is None:
-            loss, grads_raw = self._loss_and_grads(
-                inputs, labels, masks, generator=gen, new_states=new_states,
-                states=states)
-            act_stats = None
-        else:
-            loss, grads_raw, act_stats = self._loss_and_grads(
-                inputs, labels, masks, collect_stats=stats, generator=gen,
-                new_states=new_states, states=states)
+        with (dp.loss_context() if dp is not None
+              else contextlib.nullcontext()):
+            if stats is None:
+                loss, grads_raw = self._loss_and_grads(
+                    inputs, labels, masks, generator=gen,
+                    new_states=new_states, states=states)
+                act_stats = None
+            else:
+                loss, grads_raw, act_stats = self._loss_and_grads(
+                    inputs, labels, masks, collect_stats=stats,
+                    generator=gen, new_states=new_states, states=states)
+        if dp is not None:
+            loss, grads_raw, ok = dp.reduce(loss, grads_raw,
+                                            (inputs, labels, masks))
+            if not ok:
+                # a skipped step: nothing moves but the update count
+                self._update_count += 1
+                self._last_rnn_carry = {}
+                return loss if stats is None else (loss, None)
         grads = _updaters.normalize_gradients(
             grads_raw, t.gradient_normalization,
             float(t.gradient_normalization_threshold))
@@ -826,6 +848,7 @@ class ComputationGraph(torch.nn.Module):
                 rnn_state = self._last_rnn_carry
             if stats:
                 out, tree = out
+            if stats and tree is not None:      # None: a skipped step
                 self._last_health_stats = _health.DeviceStats(
                     tree, iteration=self.iteration_count
                     + (i + 1 if every_stats else len(batches)),

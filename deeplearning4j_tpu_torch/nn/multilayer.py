@@ -35,6 +35,7 @@ frozen activations below it.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -87,6 +88,8 @@ class MultiLayerNetwork(torch.nn.Module):
         self.state: Dict[str, Dict[str, torch.Tensor]] = {
             k: layer.init_state(self.policy, self.device)
             for k, layer in zip(self.keys, self.layers)}
+        # set by parallel.ParallelWrapper: the data-parallel step
+        self._data_parallel = None
         self._persistent_keys = [tuple(self.state[k]) for k in self.keys]
         self.updater_state: Optional[Dict[str, Any]] = None
         self._updater: Optional[_updaters.Updater] = None
@@ -400,7 +403,10 @@ class MultiLayerNetwork(torch.nn.Module):
                     total = total + l1 * torch.sum(torch.abs(w))
                 if l2:
                     total = total + 0.5 * l2 * torch.sum(torch.square(w))
-        return total
+        # one share of the summed loss carries the penalty when the batch
+        # is split over ranks
+        from ..parallel.collectives import count_once
+        return count_once(total)
 
     def _loss_fn(self, x, y, mask=None, *, params=None, states=None,
                  generator=None, collect_stats=None):
@@ -518,10 +524,26 @@ class MultiLayerNetwork(torch.nn.Module):
         if self._updater is None:
             self.init_updater()
         t = self.training
+        dp = self._data_parallel
+        if dp is not None:
+            if rnn_state is not None:
+                raise ValueError("truncated BPTT does not run under "
+                                 "ParallelWrapper")
+            x, y, mask = dp.shard(x, y, mask)
         gen = self._generator(f"update_{self._update_count}")
-        loss, grads_raw, new_states, act_stats = self._loss_and_grads(
-            x, y, mask, states=self._states_list(rnn_state), generator=gen,
-            collect_stats=stats)
+        with (dp.loss_context() if dp is not None
+              else contextlib.nullcontext()):
+            loss, grads_raw, new_states, act_stats = self._loss_and_grads(
+                x, y, mask, states=self._states_list(rnn_state),
+                generator=gen, collect_stats=stats)
+        if dp is not None:
+            loss, grads_raw, ok = dp.reduce(loss, grads_raw, (x, y, mask))
+            if not ok:
+                # a skipped step: nothing moves but the update count
+                self._update_count += 1
+                self._last_rnn_carry = []
+                self._score = loss
+                return loss
         grads = _updaters.normalize_gradients(
             grads_raw, t.gradient_normalization,
             float(t.gradient_normalization_threshold))

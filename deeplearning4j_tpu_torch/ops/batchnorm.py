@@ -31,12 +31,32 @@ def _n_elements(x) -> float:
     return float(n)
 
 
+def _split_groups():
+    from ..parallel.collectives import active_batch_groups
+    return active_batch_groups()
+
+
+def _global(sums, n, groups):
+    """Per-channel sums and the element count over the ranks the batch is
+    split over (the sums stacked into one all-reduce)."""
+    from ..parallel.collectives import _all_reduce_
+    if not groups:
+        return sums, n
+    flat = _all_reduce_(torch.stack(sums), groups)
+    count = _all_reduce_(torch.tensor([n], dtype=torch.float64,
+                                      device=flat.device), groups)
+    return list(flat.unbind(0)), float(count.item())
+
+
 def batch_stats(x, stat_dtype):
-    """Batch mean and biased variance per channel, in ``stat_dtype``."""
+    """Batch mean and biased variance per channel, in ``stat_dtype``.
+    Inside a ``parallel.collectives.batch_split`` the moments are those of
+    the global batch (the sums all-reduced over its ranks)."""
     dims = _reduce_dims(x)
-    n = _n_elements(x)
-    mean = torch.sum(x, dim=dims, dtype=stat_dtype) / n
+    s1 = torch.sum(x, dim=dims, dtype=stat_dtype)
     s2 = torch.sum(torch.square(x), dim=dims, dtype=stat_dtype)
+    (s1, s2), n = _global([s1, s2], _n_elements(x), _split_groups())
+    mean = s1 / n
     var = torch.clamp_min(s2 / n - torch.square(mean), 0.0)
     return mean, var
 
@@ -58,6 +78,7 @@ class BatchNormTrain(torch.autograd.Function):
         y = x * scale + shift
         ctx.save_for_backward(x, gamma, mean, var)
         ctx.eps = eps
+        ctx.groups = _split_groups()
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -65,14 +86,16 @@ class BatchNormTrain(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, gamma, mean, var = ctx.saved_tensors
         dims = _reduce_dims(x)
-        n = _n_elements(x)
         stat = gamma.dtype
         inv = torch.rsqrt(var + ctx.eps)
         xhat = (x - mean.to(x.dtype)) * inv.to(x.dtype)
         dbeta = torch.sum(dy, dim=dims, dtype=stat)
         dgamma = torch.sum((dy * xhat).to(stat), dim=dims, dtype=stat)
+        # dx reads the global sums; dγ and dβ stay this rank's share (the
+        # trainer sums the ranks' parameter gradients)
+        (gb, gg), n = _global([dbeta, dgamma], _n_elements(x), ctx.groups)
         dx = (gamma * inv).to(x.dtype) * (
-            dy - (dbeta / n).to(x.dtype) - xhat * (dgamma / n).to(x.dtype))
+            dy - (gb / n).to(x.dtype) - xhat * (gg / n).to(x.dtype))
         return dx, dgamma, dbeta, None
 
 

@@ -490,6 +490,96 @@ def flash_attention(q, k, v, causal: bool = False,
 
 
 # --------------------------------------------------------------------------
+# block entries: an online-softmax carry across kernel calls (the ring)
+# --------------------------------------------------------------------------
+#
+# Ring attention holds one local q shard and sees k/v one visiting shard
+# per hop. Each hop runs the forward kernel on (local q, visiting k/v) and
+# folds the hop's (out, lse) into a carry (running max ``m``, normalizer
+# ``l``, accumulator ``o``), so the full-sequence softmax is exact without
+# the [t, t] matrix. The caller resolves cross-hop causality into a kernel
+# mode: a pre-diagonal pair is ``causal=False``, the diagonal pair
+# ``causal=True``, a post-diagonal pair is not fed at all. The carry is
+# ``[b, t, h]`` (and ``[b, t, h, d]``) as in the JAX package; the kernels'
+# lse is ``[b, h, t]``, transposed at the seam.
+
+
+def flash_carry_init(q) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fresh (m, l, o) carry for a [b, t, h, d] query block: ``m``
+    [b, t, h] at NEG_INF, ``l`` [b, t, h] at 0, ``o`` [b, t, h, d] at 0,
+    all f32 whatever q's dtype."""
+    b, t, h, d = q.shape
+    return (torch.full((b, t, h), NEG_INF, dtype=torch.float32,
+                       device=q.device),
+            torch.zeros((b, t, h), dtype=torch.float32, device=q.device),
+            torch.zeros((b, t, h, d), dtype=torch.float32, device=q.device))
+
+
+def flash_attention_block(q, k, v, carry, *, causal: bool = False,
+                          scale: Optional[float] = None, mask=None):
+    """One carry update: attention of q [b, t, h, d] against ONE k/v block
+    of the same length, folded into ``carry``. The forward kernel (its
+    plain version on the CPU) gives this block's (out, lse); the fold is
+    the log-space online-softmax merge, exact and order-independent.
+    ``mask``: optional [b, t] key validity of THIS block. Rows that have
+    seen no attendable key keep m = NEG_INF / l = 0 and finalize to 0."""
+    m, l, o = carry
+    b, t, h, d = q.shape
+    if k.shape[1] != t:
+        raise ValueError(
+            f"flash_attention_block needs len(k) == len(q) (got "
+            f"{k.shape[1]} vs {t}) — ring hops are shard-sized; pad the "
+            "shorter side under a key mask instead")
+    _check(q, k, v, mask)
+    out_h, lse_h = _fwd(q, k, v, mask, bool(causal),
+                        _resolve_scale(scale, d))
+    lse_h = lse_h.transpose(1, 2)                           # [b, t, h]
+    m_new = torch.maximum(m, lse_h)
+    m_safe = torch.where(m_new <= _HALF_NEG, 0.0, m_new)
+    corr = torch.where(m <= _HALF_NEG, 0.0, torch.exp(m - m_safe))
+    w = torch.where(lse_h <= _HALF_NEG, 0.0, torch.exp(lse_h - m_safe))
+    o = o * corr[..., None] + out_h.float() * w[..., None]
+    l = l * corr + w
+    return m_new, l, o
+
+
+def flash_carry_finalize(carry) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [b, t, h, d] f32, lse [b, t, h] f32) from an (m, l, o) carry.
+    Rows that never saw an attendable key give out 0 and lse NEG_INF, as
+    the monolithic kernel does."""
+    m, l, o = carry
+    out = o / torch.clamp(l, min=1e-30)[..., None]
+    lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)),
+                      NEG_INF)
+    return out, lse
+
+
+def flash_attention_bwd_block(q, k, v, out, lse, dout, *,
+                              causal: bool = False,
+                              scale: Optional[float] = None, mask=None):
+    """One block pair's (dq, dk, dv) for the ring's backward: from the
+    FINAL output, its cotangent and the FULL-sequence lse [b, t, h] (from
+    :func:`flash_carry_finalize`). P is recomputed per tile from the
+    global lse, so the pairs' contributions sum to the dense gradient. On
+    CUDA tensors the three backward kernels run (Δ, dq, dk/dv); on the CPU
+    their plain version. ``causal`` has the diagonal-block meaning of
+    :func:`flash_attention_block`."""
+    b, t, h, d = q.shape
+    if k.shape[1] != t:
+        raise ValueError(
+            f"flash_attention_bwd_block needs len(k) == len(q) (got "
+            f"{k.shape[1]} vs {t}) — ring hops are shard-sized")
+    _check(q, k, v, mask)
+    s = _resolve_scale(scale, d)
+    lse_k = lse.transpose(1, 2).contiguous()                # [b, h, t]
+    if _device_path(q):
+        return _flash_bwd_cuda(q, k, v, mask, out, lse_k, dout, bool(causal),
+                               s)
+    return flash_attention_bwd_plain(q, k, v, mask, out, lse_k, dout,
+                                     causal=bool(causal), scale=s)
+
+
+# --------------------------------------------------------------------------
 # bf16 bounds the kernels are held to
 # --------------------------------------------------------------------------
 

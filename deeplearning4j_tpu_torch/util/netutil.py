@@ -5,6 +5,7 @@ limits, the strict-mode refusal and the warn-once on overflow."""
 
 from __future__ import annotations
 
+import contextvars
 import hashlib
 import warnings
 
@@ -30,13 +31,17 @@ def checkpoint_segment(fn, generator, *args):
     activations are recomputed in the backward instead of kept. The
     checkpoint preserves only the default RNG, so ``generator``'s state at
     entry (the step's dropout and sampling draws) is restored before each
-    run of ``fn``: the recompute draws the masks the forward drew."""
+    run of ``fn``: the recompute draws the masks the forward drew. The
+    recompute also runs in a copy of the forward's context variables (a
+    sharded step's ``parallel.collectives`` and ``sequence_sharding``
+    contexts), since the backward may run on another thread."""
     state = None if generator is None else generator.get_state()
+    context = contextvars.copy_context()
 
     def run(*a):
         if state is not None:
             generator.set_state(state)
-        return fn(*a)
+        return context.copy().run(fn, *a)
     return checkpoint(run, *args, use_reentrant=False)
 
 

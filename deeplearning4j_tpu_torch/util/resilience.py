@@ -1,8 +1,8 @@
 """Resilience substrate: retry/backoff, circuit breaking, deadlines.
 
 A copy of the JAX package's ``util/resilience.py`` (host code, no JAX
-math), minus ``NonFiniteGuard``, which needs the training-health modules
-and comes with the training slice.
+math), with ``NonFiniteGuard`` reading the port's training-health
+attribution.
 
 Parity-plus: the reference delegates fault tolerance entirely to Spark
 task retry (SURVEY §5 — nothing bespoke in-tree). This reproduction owns
@@ -404,3 +404,70 @@ def metrics_transition_hook(registry=None) -> Callable[[str, str, str], None]:
         transitions.inc(breaker=name, from_state=old, to_state=new)
 
     return hook
+
+
+# ----------------------------------------------------------------------
+# non-finite step budget
+# ----------------------------------------------------------------------
+
+class NonFiniteGuard:
+    """Budget for skipped non-finite training steps.
+
+    The sharded trainers detect non-finite gradients on the device and
+    keep the old parameters and optimizer state (the update is a no-op);
+    this host-side guard counts those skips, logs each one, fires
+    ``on_step_skipped`` on the net's listeners, and raises once more than ``budget`` steps were
+    skipped. Handed the failing batch, it also runs NaN layer-of-origin
+    attribution (``util.health.attribute_nonfinite``) and stamps the
+    finding into the skip reason (``attribute=False`` turns the replay
+    off)."""
+
+    def __init__(self, budget: int, net=None,
+                 model_name: Optional[str] = None, attribute: bool = True):
+        self.budget = int(budget)
+        self.net = net
+        self.model_name = model_name or (
+            type(net).__name__ if net is not None else "net")
+        self.attribute = attribute
+        self.skipped = 0
+        self.last_attribution = None
+
+    def step(self, ok, detail: str = "", batch=None, params=None) -> None:
+        """Record one step's finiteness flag (one host read)."""
+        if bool(ok):
+            return
+        self.skipped += 1
+        net = self.net
+        iteration = getattr(net, "iteration_count", self.skipped)
+        report = None
+        if self.attribute and batch is not None and net is not None:
+            try:
+                from . import health as _health
+                x, y, mask = (tuple(batch) + (None, None))[:3]
+                report = _health.attribute_nonfinite(
+                    net, x, y, mask, params=params,
+                    model=self.model_name, iteration=iteration)
+                self.last_attribution = report
+            except Exception:
+                logger.exception("NaN layer-of-origin attribution failed")
+        reason = ("non-finite gradients" + (f" ({detail})" if detail else ""))
+        if report is not None:
+            reason += f" — {report.summary()}"
+        info = {"model": self.model_name, "iteration": int(iteration),
+                "layer": report.layer if report is not None else None,
+                "quantity": report.quantity if report is not None else None,
+                "param": report.param if report is not None else None}
+        logger.warning(
+            "%s at iteration %s — update suppressed (%d/%d budget)",
+            reason, iteration, self.skipped, self.budget)
+        from . import flightrecorder as _flight
+        _flight.record("step_skipped", reason=reason, skipped=self.skipped,
+                       budget=self.budget, **info)
+        from ..optimize.listeners import fire_step_skipped
+        for l in getattr(net, "listeners", []) or []:
+            fire_step_skipped(l, net, iteration, reason, info)
+        if self.skipped > self.budget:
+            raise ResilienceError(
+                f"{self.skipped} training steps skipped for non-finite "
+                f"gradients (budget {self.budget}) — the run is "
+                f"diverging{'; ' + report.summary() if report else ''}")
