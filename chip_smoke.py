@@ -170,7 +170,30 @@ Phases, in order; any failure propagates and the script exits non-zero:
    sync, the step's wall and device time and kernels with stats on and
    off, and a NaN in one layer's parameter attributed to that layer and
    served by GET /debug/health;
-14. distribution: the ring's per-hop entries on a virtual 4-rank ring at
+14. etl_dashboard: ETL at bench.py::bench_lenet's widths, then the
+   dashboard on the health phase's flagship net. A MNIST-format CSV
+   (16,384 rows of a label and 784 integer pixels, ≈ 46 MB) and MNIST idx
+   files written from the seed into a temporary directory: util/native.py
+   must have built _fastcsv and the CSV must go through the native parser
+   (its first 1,024 records bitwise equal to the Python path's); one
+   staged LeNet-5 epoch (16 steps of 1024, f32, adam 1e-3) fed by
+   RecordReaderDataSetIterator with the /255 scaling must end with
+   parameters bitwise equal to the epoch fed by ArrayDataSetIterator over
+   the same arrays; MnistDataSetIterator under DL4J_TPU_DATA_DIR (downloads
+   off) must read the idx files, its images the pixels / 255. Readings:
+   native parse s and MB/s, the Python path's s on 1,024 rows, records/s
+   through the iterator, the step wall and device busy share CSV-fed and
+   array-fed. Then 8 flagship fit_batch under StatsListener(device_stats=
+   True, frequency=2) into a FileStatsStorage served by UIServer: host
+   syncs equal the 4 windows, one record a window, the last record's
+   per-layer projection equal to the snapshot's, each kernel 12 launches a
+   step; GET /api/sessions, /api/overview (the records' scores),
+   /api/histograms (the 12 blocks, log10 axis), /api/flow, /api/static,
+   /debug/health and /metrics (device_memory_bytes of cuda:0) answer 200;
+   a RemoteUIStatsStorageRouter lands the records unchanged in a second
+   server's storage, and the file reopened equals them. Readings: the step
+   wall with the listener and without, each endpoint's ms;
+15. distribution: the ring's per-hop entries on a virtual 4-rank ring at
    the flagship's attention shape [8, 2048, 12, 64] in f32, causal (each
    kernel must launch 10 times: 4 diagonal and 6 pre-diagonal hops), its
    out, lse, dq, dk and dv against the monolithic f32 kernels, unmasked
@@ -185,10 +208,11 @@ Phases, in order; any failure propagates and the script exits non-zero:
    trainers at 2 layers (the MoE net 1), bitwise equal to the plain step;
    a two-host ElasticTrainer fleet on threads whose committed average is
    the averaging rule's;
-15. a {"classic": ...}, a {"moe": ...}, a {"slice": ...}, a
-   {"substrate": ...}, a {"fleet": ...} and a {"distribution": ...} JSON
-   line of those readings, a JSON line of the kernels (launches on the
-   training path and per path, error, times, bound), the card line, and
+16. a {"classic": ...}, a {"moe": ...}, a {"slice": ...}, a
+   {"substrate": ...}, a {"fleet": ...}, a {"distribution": ...} and an
+   {"etl_dashboard": ...} JSON line of those readings, a JSON line of
+   the kernels (launches on the training path and per path, error,
+   times, bound), the card line, and
    last {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.
@@ -220,6 +244,10 @@ if not torch.cuda.is_available():
 from deeplearning4j_tpu_torch.data.pipeline import (  # noqa: E402
     RecordDataSetIterator)
 from deeplearning4j_tpu_torch.data.records import write_shard_set  # noqa: E402
+from deeplearning4j_tpu_torch import datavec  # noqa: E402
+from deeplearning4j_tpu_torch.datasets import (  # noqa: E402
+    ArrayDataSetIterator, MnistDataSetIterator)
+from deeplearning4j_tpu_torch.datavec import native as dv_native  # noqa: E402
 from deeplearning4j_tpu_torch.models import (  # noqa: E402
     char_rnn_lstm, lenet, resnet50, transformer_lm)
 from deeplearning4j_tpu_torch.nn.conf import (  # noqa: E402
@@ -250,6 +278,9 @@ from deeplearning4j_tpu_torch.serving import (  # noqa: E402
 from deeplearning4j_tpu_torch.serving.decode import (  # noqa: E402
     DecodeScheduler, PagedDecodeEngine)
 from deeplearning4j_tpu_torch.serving.kv_cache import PagedKVArena  # noqa: E402
+from deeplearning4j_tpu_torch.storage import (  # noqa: E402
+    FileStatsStorage, InMemoryStatsStorage, RemoteUIStatsStorageRouter)
+from deeplearning4j_tpu_torch.ui import StatsListener, UIServer  # noqa: E402
 from deeplearning4j_tpu_torch.util import capture  # noqa: E402
 from deeplearning4j_tpu_torch.util import faults  # noqa: E402
 from deeplearning4j_tpu_torch.util import flightrecorder  # noqa: E402
@@ -1009,19 +1040,20 @@ def phase_bwd_kernel_vs_plain():
           "and rows with no key exact zeros")
 
 
-def bwd_bounds(b, t, h, d, itemsize):
-    """(bound_ms, bound_by) per backward kernel at a causal, unmasked call:
+def bwd_bounds(b, t, h, d, itemsize, causal=True):
+    """(bound_ms, bound_by) per backward kernel at an unmasked call:
     bytes with each input read once and each output written once; FLOPs
     6·d per attended (query, key) pair for dq (S, dP, dS·K), 8·d for dk/dv
-    (S, dP, dSᵀ·Q, Pᵀ·dO), 2·d per row for Δ (f32 on the CUDA cores)."""
-    pairs = b * h * t * (t + 1) / 2
+    (S, dP, dSᵀ·Q, Pᵀ·dO), over the bf16 or f32 peak of the operands,
+    2·d per row for Δ (f32 on the CUDA cores)."""
+    pairs = b * h * t * ((t + 1) / 2 if causal else t)
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
     x = b * t * h * d * itemsize          # one [b, t, h, d] tensor
     row = b * h * t * 4                   # one [b, h, t] f32 tensor
     work = {"flash_bwd_preprocess": (2 * d * b * t * h / PEAK_F32_FLOPS,
                                      2 * x + row),
-            "flash_bwd_dq": (6 * d * pairs / PEAK_BF16_FLOPS,
-                             4 * x + 2 * row + x),
-            "flash_bwd_dkv": (8 * d * pairs / PEAK_BF16_FLOPS,
+            "flash_bwd_dq": (6 * d * pairs / peak, 4 * x + 2 * row + x),
+            "flash_bwd_dkv": (8 * d * pairs / peak,
                               4 * x + 2 * row + 2 * x)}
     res = {}
     for name, (t_ops, nbytes) in work.items():
@@ -3329,7 +3361,8 @@ def stats_inputs():
 
 
 def phase_fleet():
-    """Returns ({"fleet": readings}, {path: {kernel: launches}})."""
+    """Returns ({"fleet": readings}, {path: {kernel: launches}}, the
+    health phase's flagship net, batch and initial state)."""
     readings, launches = {}, {}
     V, L = FLAGSHIP["V"], FLEET["layers"]
     rng = np.random.default_rng(SEED + 8)
@@ -3684,11 +3717,11 @@ def phase_fleet():
     torch.cuda.empty_cache()
 
     # 7. training-health telemetry on the flagship step
-    health_readings, health_launches = phase_health()
+    health_readings, health_launches, flagship = phase_health()
     readings["health"] = health_readings
     launches["health"] = health_launches
     shutil.rmtree(tmp, ignore_errors=True)
-    return {"fleet": readings}, launches
+    return {"fleet": readings}, launches, flagship
 
 
 def net_state(net):
@@ -3720,7 +3753,8 @@ def phase_health():
     """The flagship training step with the health stats on and off, from
     the same state: stats within tolerance of a plain recomputation, the
     parameters bitwise equal, no added host sync, the NaN attributed.
-    Returns (readings, {kernel: launches of the stats step})."""
+    Returns (readings, {kernel: launches of the stats step}, the net with
+    its batch and initial state for the dashboard phase)."""
     V, L, D, H, F, T, B = (FLAGSHIP[k] for k in "VLDHFTB")
     conf = transformer_lm(V, n_layers=L, d_model=D, n_heads=H, d_ff=F,
                           dtype="mixed_bf16", input_ids=True,
@@ -3843,7 +3877,7 @@ def phase_health():
                 "step_kernels": {"off": dev[False][1], "on": dev[True][1]},
                 "step_host_launch_calls": {"off": dev[False][2],
                                            "on": dev[True][2]}}
-    return readings, launches
+    return readings, launches, (net, x, y, state0)
 
 
 # --------------------------------------------------------------------------
@@ -4616,6 +4650,11 @@ def ring_timing(q, k, v, g):
         bound, by = flash_bound(b, tl, h, d, causal, None, 4)
         res[f"hop_fwd_{kind}_bound_ms"], res[f"hop_fwd_{kind}_bound_by"] = \
             bound, by
+        # the hop's backward runs Δ, dq and dk/dv back to back: the sum of
+        # their bounds
+        bwd = bwd_bounds(b, tl, h, d, 4, causal)
+        res[f"hop_bwd_{kind}_bound_ms"] = sum(v[0] for v in bwd.values())
+        res[f"hop_bwd_{kind}_bound_by"] = {k: v[1] for k, v in bwd.items()}
     full, diag = n * (n - 1) // 2, n
     res["hops_fwd_sum_ms"] = (full * res["hop_fwd_full_ms"]
                               + diag * res["hop_fwd_diag_ms"])
@@ -5012,6 +5051,386 @@ def elastic_on_card():
     return {"hosts": 2, "rounds": rounds, "wall_s": wall, "agreed": True}
 
 
+# --------------------------------------------------------------------------
+# ETL and the dashboard: a MNIST-format CSV through the native parser, the
+# record reader and iterator into a staged LeNet-5 fit; idx files through
+# MnistDataSetIterator; then the flagship trained under a StatsListener
+# (the on-device stats path) into a FileStatsStorage served by UIServer
+# --------------------------------------------------------------------------
+
+# bench.py::bench_lenet's widths (LeNet-5, f32, adam 1e-3, batch 1024);
+# 16,384 rows of a label and 784 pixels, one epoch of 16 steps; the
+# dashboard: 8 fit_batch of the flagship, the listener at frequency 2.
+ETL = {"rows": 16384, "batch": 1024, "python_rows": 1024, "mnist_test": 1024}
+DASHBOARD = {"steps": 8, "frequency": 2}
+DASHBOARD_ENDPOINTS = ("/api/sessions", "/api/overview?sid={sid}",
+                       "/api/histograms?sid={sid}", "/api/flow?sid={sid}",
+                       "/api/static?sid={sid}", "/debug/health", "/metrics")
+
+
+def http_get(port, path):
+    """(status, body bytes, ms) of one GET."""
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as resp:
+        body = resp.read()
+        return resp.status, body, (time.perf_counter() - t0) * 1e3
+
+
+def write_idx(path, arr):
+    """An idx file (the MNIST format) of a uint8 array."""
+    with open(path, "wb") as f:
+        f.write(bytes([0, 0, 0x08, arr.ndim]))
+        f.write(np.asarray(arr.shape, dtype=">u4").tobytes())
+        f.write(np.ascontiguousarray(arr, dtype=np.uint8).tobytes())
+
+
+def float_bits(records):
+    return np.asarray(records, dtype=np.float64).tobytes()
+
+
+def storage_records(st):
+    """Every record of a stats storage as JSON text, in a fixed order."""
+    out = []
+    for sid in st.list_session_ids():
+        for tid in st.list_type_ids(sid):
+            for wid in st.list_workers(sid, tid):
+                s = st.get_static_info(sid, tid, wid)
+                out.append(None if s is None else s.to_json())
+                out.extend(r.to_json() for r in
+                           st.get_all_updates_after(sid, tid, wid, -1.0))
+    return out
+
+
+def etl_epoch(net, it, profile_it):
+    """One fit epoch over ``it``, timed (host clock to a synchronize) and,
+    when ``profile_it``, under torch.profiler: (wall s, steps, the summed
+    device time of its kernels and copies in ms, or None)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    i0 = net.iteration_count
+    ctx = (torch_profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA])
+           if profile_it else contextlib.nullcontext())
+    with ctx as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(it)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_ms = None
+    if profile_it:
+        dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                     if getattr(e, "device_type", None) is not None
+                     and "CUDA" in str(e.device_type)) / 1e3
+    return wall, net.iteration_count - i0, dev_ms
+
+
+def phase_etl(tmp):
+    """Part 1: the CSV through the native parser into a staged LeNet-5
+    epoch, bitwise equal to the array-fed epoch; the idx files through
+    MnistDataSetIterator."""
+    rows, batch = ETL["rows"], ETL["batch"]
+    rng = np.random.default_rng(SEED + 40)
+    pixels = rng.integers(0, 256, (rows, 784), dtype=np.uint8)
+    labels = rng.integers(0, 10, rows)
+    table = np.array([str(i) for i in range(256)], dtype=object)
+    csv_path = os.path.join(tmp, "mnist.csv")
+    t0 = time.perf_counter()
+    lines = [f"{c}," + ",".join(table[row]) for row, c in zip(pixels,
+                                                              labels)]
+    with open(csv_path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    write_s = time.perf_counter() - t0
+    csv_bytes = os.path.getsize(csv_path)
+
+    lib = dv_native.load()
+    if lib is None:
+        raise AssertionError("util/native.py did not build _fastcsv")
+    parses = []
+    real_parse = dv_native.parse_numeric_csv
+
+    def timed_parse(*a, **k):
+        t = time.perf_counter()
+        out = real_parse(*a, **k)
+        parses.append((time.perf_counter() - t, out is not None))
+        return out
+
+    dv_native.parse_numeric_csv = timed_parse
+    try:
+        t0 = time.perf_counter()
+        reader = datavec.CSVRecordReader(path=csv_path)
+        read_s = time.perf_counter() - t0
+        head = datavec.CSVRecordReader(lines=lines[:ETL["python_rows"]])
+    finally:
+        dv_native.parse_numeric_csv = real_parse
+    if [ok for _, ok in parses] != [True, True] or len(reader) != rows:
+        raise AssertionError(f"the CSV did not go through the native "
+                             f"parser: {parses}, {len(reader)} records")
+    parse_s = parses[0][0]
+    dv_native.parse_numeric_csv = lambda *a, **k: None
+    try:
+        t0 = time.perf_counter()
+        py = datavec.CSVRecordReader(lines=lines[:ETL["python_rows"]])
+        python_s = time.perf_counter() - t0
+    finally:
+        dv_native.parse_numeric_csv = real_parse
+    first = [reader.next_record() for _ in range(ETL["python_rows"])]
+    reader.reset()
+    py_recs = list(py)
+    native_equal = (float_bits(first) == float_bits(py_recs)
+                    == float_bits(list(head)))
+    print(f"etl: {rows} rows, {csv_bytes / 1e6:.3f} MB written in "
+          f"{write_s:.3f} s; native parse {parse_s:.3f} s "
+          f"({csv_bytes / 1e6 / parse_s:.1f} MB/s; the reader with its "
+          f"file read and records {read_s:.3f} s) from {lib._name}; the "
+          f"Python path on {ETL['python_rows']} rows {python_s:.3f} s (the "
+          f"native path there {parses[1][0]:.4f} s); records bitwise "
+          f"equal: {native_equal}")
+    if not native_equal:
+        raise AssertionError("native and Python records differ")
+
+    def scale(ds):
+        ds.features = ds.features / np.float32(255.0)
+        return ds
+
+    csv_net = MultiLayerNetwork(lenet(), device=DEV).init()
+    arr_net = MultiLayerNetwork(lenet(), device=DEV).init()
+    restore_state(arr_net, net_state(csv_net))
+    it = datavec.RecordReaderDataSetIterator(
+        reader, batch, label_index=0, num_classes=10, preprocessor=scale)
+    iter_s = []
+    real_next = it.next
+
+    def timed_next():
+        t = time.perf_counter()
+        out = real_next()
+        iter_s.append(time.perf_counter() - t)
+        return out
+
+    it.next = timed_next
+    x = pixels.astype(np.float32) / np.float32(255.0)
+    y = np.eye(10, dtype=np.float32)[labels]
+    # the gate compares the two input paths, so cuDNN must not pick an
+    # algorithm whose sums land in another order from one epoch to the next
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        staged0 = ingest._staged_counter().value(stage="fit")
+        csv_wall, csv_steps, csv_dev = etl_epoch(csv_net, it, True)
+        staged = ingest._staged_counter().value(stage="fit") - staged0
+        arr_wall, arr_steps, arr_dev = etl_epoch(
+            arr_net, ArrayDataSetIterator(x, y, batch), True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    bitwise = tree_bitwise_equal(csv_net.params, arr_net.params)
+    loss = float(csv_net.score_for(x[:batch], y[:batch]))
+    busy = {k: (None if d is None else d / (w * 1e3))
+            for k, d, w in (("csv", csv_dev, csv_wall),
+                            ("array", arr_dev, arr_wall))}
+    print(f"etl: LeNet-5 epoch fed by the CSV iterator {csv_steps} steps "
+          f"({staged:.0f} staged), {csv_wall:.3f} s "
+          f"({1e3 * csv_wall / csv_steps:.3f} ms a step, device "
+          f"{csv_dev} ms, busy {busy['csv']}); the iterator "
+          f"{sum(iter_s):.3f} s over {len(iter_s)} batches "
+          f"({rows / sum(iter_s):.0f} records/s); fed by arrays "
+          f"{arr_steps} steps, {arr_wall:.3f} s "
+          f"({1e3 * arr_wall / arr_steps:.3f} ms a step, device {arr_dev} "
+          f"ms, busy {busy['array']}); parameters bitwise equal: "
+          f"{bitwise}; loss after the epoch {loss:.6g}")
+    if csv_steps != rows // batch or arr_steps != csv_steps or \
+            staged != csv_steps or not bitwise or not np.isfinite(loss):
+        raise AssertionError("the CSV-fed epoch differs from the array-fed "
+                             "one")
+    del csv_net, arr_net
+
+    mnist = os.path.join(tmp, "mnist")
+    os.makedirs(mnist)
+    n_test = ETL["mnist_test"]
+    t_px = rng.integers(0, 256, (n_test, 28, 28), dtype=np.uint8)
+    t_lab = rng.integers(0, 10, n_test).astype(np.uint8)
+    for name, arr in (("train-images-idx3-ubyte",
+                       pixels.reshape(rows, 28, 28)),
+                      ("train-labels-idx1-ubyte", labels.astype(np.uint8)),
+                      ("t10k-images-idx3-ubyte", t_px),
+                      ("t10k-labels-idx1-ubyte", t_lab)):
+        write_idx(os.path.join(mnist, name), arr)
+    env = {"DL4J_TPU_DATA_DIR": tmp, "DL4J_TPU_AUTO_DOWNLOAD": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        m_it = MnistDataSetIterator(batch, train=True, shuffle=False)
+        m_test = MnistDataSetIterator(batch, train=False, shuffle=False)
+        mnist_s = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    feats = np.concatenate([ds.features for ds in m_it])
+    t_feats = np.concatenate([ds.features for ds in m_test])
+    real = not (m_it.synthetic or m_test.synthetic)
+    mnist_equal = (np.array_equal(feats, x) and np.array_equal(
+        t_feats, t_px.reshape(n_test, -1).astype(np.float32) / 255.0))
+    print(f"etl: MnistDataSetIterator read the idx files (not the "
+          f"synthetic fallback: {real}) in {mnist_s:.3f} s; images equal "
+          f"the written pixels / 255: {mnist_equal}")
+    if not (real and mnist_equal):
+        raise AssertionError("MnistDataSetIterator did not read the "
+                             "written idx files")
+    return {"rows": rows, "csv_mb": csv_bytes / 1e6, "write_s": write_s,
+            "native_parse_s": parse_s,
+            "native_parse_mb_s": csv_bytes / 1e6 / parse_s,
+            "reader_s": read_s, "python_rows": ETL["python_rows"],
+            "python_parse_s": python_s,
+            "native_parse_slice_s": parses[1][0],
+            "iterator_s": sum(iter_s),
+            "records_per_s": rows / sum(iter_s),
+            "csv_step_ms": 1e3 * csv_wall / csv_steps,
+            "array_step_ms": 1e3 * arr_wall / arr_steps,
+            "csv_epoch_s": csv_wall, "array_epoch_s": arr_wall,
+            "device_ms": {"csv": csv_dev, "array": arr_dev},
+            "busy": busy, "params_bitwise": bitwise,
+            "mnist_idx_read": real, "mnist_read_s": mnist_s}
+
+
+def phase_dashboard(tmp, flagship):
+    """Part 2: the flagship (the health phase's net, from its initial
+    state) trained under StatsListener(device_stats=True) into a
+    FileStatsStorage served by UIServer; the remote router into a second
+    server; the file reopened."""
+    net, x, y, state0 = flagship
+    steps, freq = DASHBOARD["steps"], DASHBOARD["frequency"]
+
+    def run(listener):
+        restore_state(net, state0)
+        if listener is None:
+            net.disable_health_stats()
+            net.set_listeners()
+        else:
+            net.set_listeners(listener)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            net.fit_batch(x, y)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / steps
+
+    path = os.path.join(tmp, "stats.jsonl")
+    storage = FileStatsStorage(path)
+    server = UIServer(port=0).attach(storage)
+    sid = "flagship"
+    try:
+        plain_ms = run(None)
+        listener = StatsListener(storage, frequency=freq, session_id=sid,
+                                 device_stats=True)
+        syncs = ingest.sync_counter()
+        s0 = syncs.total()
+        for kn in KERNELS:
+            kn.launches = 0
+        listener_ms = run(listener)
+        launches = {kn.name: kn.launches for kn in KERNELS}
+        n_sync = syncs.total() - s0
+        net.set_listeners()
+        windows = steps // freq
+        ups = storage.get_all_updates_after(sid, "StatsListener",
+                                            "worker_0", 0.0)
+        snap = health.latest_stats(net).value()     # cached: no new sync
+        proj = json.loads(json.dumps(listener._device_param_view(snap)))
+        proj_equal = proj == ups[-1].data.get("parameters")
+        print(f"dashboard: {steps} flagship steps with the listener "
+              f"{listener_ms:.3f} ms a step against {plain_ms:.3f} without; "
+              f"host syncs {n_sync:.0f} for {windows} windows; records "
+              f"{len(ups)}; the last record's projection equals the "
+              f"snapshot's: {proj_equal}; launches {launches}")
+        if n_sync != windows or len(ups) != windows or not proj_equal:
+            raise AssertionError("the listener's device path broke its "
+                                 "one-sync-per-window contract")
+        if any(n != FLAGSHIP["L"] * steps for n in launches.values()):
+            raise AssertionError(f"the dashboard steps launched {launches}")
+
+        ms, bodies = {}, {}
+        for ep in DASHBOARD_ENDPOINTS:
+            p = ep.format(sid=sid)
+            code, bodies[ep], ms[p] = http_get(server.port, p)
+            if code != 200:
+                raise AssertionError(f"GET {p} answered {code}")
+        overview = json.loads(bodies["/api/overview?sid={sid}"])
+        hist = json.loads(bodies["/api/histograms?sid={sid}"])["latest"]
+        flow = json.loads(bodies["/api/flow?sid={sid}"])
+        static = json.loads(bodies["/api/static?sid={sid}"])["worker_0"]
+        metrics = bodies["/metrics"].decode()
+        params = hist.get("parameters") or {}
+        blocks = {n.split("_")[0] for n in params if n.startswith("blk")}
+        ok = (json.loads(bodies["/api/sessions"]) == [sid]
+              and overview["scores"] == [u.data["score"] for u in ups]
+              and overview["iterations"] == [u.data["iteration"]
+                                             for u in ups]
+              and len(blocks) == FLAGSHIP["L"]
+              and all(e["histogram"]["log10_abs"]
+                      and len(e["histogram"]["counts"]) == health.HIST_LEN
+                      for e in params.values())
+              and len(flow["nodes"]) > 2 * FLAGSHIP["L"]
+              and static["devices"] == ["cuda:0"]
+              and 'device_memory_bytes{device="cuda:0",kind="in_use"}'
+              in metrics)
+        print(f"dashboard: endpoints answered 200 in "
+              f"{ {k: round(v, 3) for k, v in ms.items()} } ms; histograms "
+              f"of {len(params)} layers over {len(blocks)} blocks (log10 "
+              f"axis); flow {len(flow['nodes'])} nodes; static devices "
+              f"{static['devices']}; checks hold: {ok}")
+        if not ok:
+            raise AssertionError("a dashboard endpoint's answer is wrong")
+
+        recv = InMemoryStatsStorage()
+        second = UIServer(port=0).attach(recv)
+        try:
+            router = RemoteUIStatsStorageRouter(
+                f"http://127.0.0.1:{second.port}")
+            static_rec = storage.get_static_info(sid, "StatsListener",
+                                                 "worker_0")
+            router.put_static_info(static_rec)
+            for u in ups:
+                router.put_update(u)
+            t0 = time.perf_counter()
+            router.close()
+            remote_s = time.perf_counter() - t0
+        finally:
+            second.stop()
+        posted = storage_records(storage)
+        remote_equal = storage_records(recv) == posted
+    finally:
+        server.stop()
+        storage.close()
+    with FileStatsStorage(path) as reopened:
+        file_equal = storage_records(reopened) == posted
+    print(f"dashboard: the remote router landed {router._posted} records "
+          f"unchanged in a second storage: {remote_equal} "
+          f"({remote_s:.3f} s to drain); the file reopened equals what was "
+          f"posted: {file_equal}")
+    if not (remote_equal and file_equal and router._posted == len(posted)):
+        raise AssertionError("the remote or file storage lost records")
+    restore_state(net, state0)
+    readings = {"steps": steps, "frequency": freq,
+                "step_ms": {"listener": listener_ms, "plain": plain_ms},
+                "host_syncs": n_sync, "windows": windows,
+                "records": len(ups), "endpoint_ms": ms,
+                "histogram_layers": len(params), "remote_s": remote_s}
+    return readings, launches
+
+
+def phase_etl_dashboard(flagship):
+    """Returns (readings, {kernel: launches of the dashboard steps})."""
+    tmp = tempfile.mkdtemp(prefix="etl_dashboard_")
+    try:
+        etl = phase_etl(tmp)
+        dashboard, launches = phase_dashboard(tmp, flagship)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"etl": etl, "dashboard": dashboard}, launches
+
+
 # Past this many seconds the run dumps every thread's stack to stderr and
 # exits non-zero: a hang or a slow machine then shows where it was, before
 # an outer time limit (1200 s) kills the process with nothing said.
@@ -5058,7 +5477,12 @@ def main():
     moe, moe_launches = timed_phase("moe main path", phase_moe)
     slice_ = timed_phase("slice main path", phase_slice)
     timed_phase("decode main path", phase_decode)
-    fleet, fleet_launches = timed_phase("fleet main path", phase_fleet)
+    fleet, fleet_launches, flagship = timed_phase("fleet main path",
+                                                  phase_fleet)
+    etl_dashboard, dashboard_launches = timed_phase(
+        "etl_dashboard", phase_etl_dashboard, flagship)
+    del flagship
+    torch.cuda.empty_cache()
     distribution = timed_phase("distribution", phase_distribution)
 
     src = "deeplearning4j_tpu_torch/ops/csrc/"
@@ -5096,7 +5520,8 @@ def main():
             "moe_forward": moe_launches["forward"][k["name"]],
             "moe_remat": moe_launches["remat"][k["name"]],
             "substrate": substrate_launches[k["name"]],
-            "ring": distribution["ring_launches"][k["name"]]}
+            "ring": distribution["ring_launches"][k["name"]],
+            "dashboard": dashboard_launches[k["name"]]}
     total = f"script {time.perf_counter() - T_START:.3f} s"
     print(total)
     print(f"chip_smoke: {total}", file=sys.stderr, flush=True)
@@ -5106,6 +5531,7 @@ def main():
     print(json.dumps({"substrate": substrate}))
     print(json.dumps(fleet))
     print(json.dumps({"distribution": distribution}))
+    print(json.dumps({"etl_dashboard": etl_dashboard}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

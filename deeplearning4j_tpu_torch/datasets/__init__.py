@@ -1,7 +1,8 @@
 """Data containers and the iterator framework (counterpart of the JAX
 package's ``datasets/``): ``DataSet``/``MultiDataSet``, the seekable
 iterators, and the async prefetch iterators that stage batches onto the
-card. The canned-dataset fetchers are not ported yet."""
+card; the canned-dataset fetchers (MNIST, CIFAR-10, LFW, Iris, curves)
+and their downloader."""
 
 from .dataset import DataSet, MultiDataSet
 from .iterator import (
@@ -13,6 +14,12 @@ from .iterator import (
     ListDataSetIterator,
     MultipleEpochsIterator,
     SamplingDataSetIterator,
+)
+from .fetchers import (
+    CifarDataSetIterator,
+    IrisDataSetIterator,
+    LFWDataSetIterator,
+    MnistDataSetIterator,
 )
 
 __all__ = [
@@ -26,4 +33,8 @@ __all__ = [
     "SamplingDataSetIterator",
     "AsyncDataSetIterator",
     "AsyncMultiDataSetIterator",
+    "MnistDataSetIterator",
+    "IrisDataSetIterator",
+    "CifarDataSetIterator",
+    "LFWDataSetIterator",
 ]

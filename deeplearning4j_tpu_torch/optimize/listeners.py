@@ -21,6 +21,7 @@ import time
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..util import metrics as _metrics
 from ..util.ingest import (LazyScore, as_listener_score,  # noqa: F401
@@ -285,8 +286,11 @@ class ParamAndGradientIterationListener(TrainingListener):
     @staticmethod
     def _flat(model):
         """{"['vertex']['param']": f32 host copy} (the reference's
-        ``jax.tree_util.keystr`` names)."""
-        return {f"['{v}']['{k}']": t.detach().float().cpu().numpy()
+        ``jax.tree_util.keystr`` names). Always a copy: on the CPU
+        ``.cpu()`` would alias the live tensor, which the next step
+        updates in place, and every delta would read 0."""
+        return {f"['{v}']['{k}']": t.detach().to(
+                    "cpu", torch.float32, copy=True).numpy()
                 for v, ps in model.params.items() for k, t in ps.items()}
 
     def iteration_done(self, model, iteration, score) -> None:

@@ -10,9 +10,8 @@ Kernels are launched asynchronously, so a ``step`` phase measures the
 launch unless ``blocking=True``, which synchronizes the device of the
 tensors the timed section produced before closing the measurement.
 
-The HTML timeline is built on the ``ui`` components, which are not ported
-yet: :meth:`TrainingStats.as_components` and ``export_html`` raise
-``NotYetPorted``.
+The HTML timeline (:meth:`TrainingStats.as_components`, ``export_html``)
+is built on the ``ui`` components, as the reference's is.
 """
 
 from __future__ import annotations
@@ -114,21 +113,31 @@ class TrainingStats:
         })
 
     # ------------------------------------------------------------------
-    # HTML timeline (parity: StatsUtils.exportStatsAsHtml :69-92)
+    # HTML timeline (parity: StatsUtils.exportStatsAsHtml :69-92, built on
+    # the ui-components DSL exactly as the reference's Spark stats were)
     # ------------------------------------------------------------------
 
     def as_components(self) -> list:
-        """Timeline + summary table as UI components (needs ``ui``)."""
-        from ..nn.conf.layers import NotYetPorted
-        raise NotYetPorted("TrainingStats.as_components: the ui components "
-                           "are not yet ported to the PyTorch package")
+        """Timeline + summary table as UI components."""
+        from ..ui.components import ChartTimeline, ComponentTable
+        timeline = ChartTimeline("Phase timeline")
+        for p in self.phases():
+            timeline.add_lane(p, [
+                (e.start_ms, e.start_ms + e.duration_ms,
+                 f"{p}: {e.duration_ms:.2f} ms @ {e.start_ms:.1f} ms")
+                for e in self.events if e.phase == p])
+        table = ComponentTable(
+            ["phase", "count", "total ms", "mean ms", "min ms", "max ms"],
+            [[p, s["count"], s["total_ms"], s["mean_ms"], s["min_ms"],
+              s["max_ms"]] for p, s in self.summary().items()],
+            title="Per-phase summary")
+        return [timeline, table]
 
     def export_html(self, path: str, title: str = "Training phase timeline"
                     ) -> None:
-        """Standalone HTML timeline (needs ``ui``)."""
-        from ..nn.conf.layers import NotYetPorted
-        raise NotYetPorted("TrainingStats.export_html: the ui components "
-                           "are not yet ported to the PyTorch package")
+        """Standalone HTML: one swimlane per phase, a rect per event."""
+        from ..ui.components import StaticPageUtil
+        StaticPageUtil.save_html(self.as_components(), path, title)
 
 
 @contextmanager
