@@ -157,7 +157,7 @@ Phases, in order; any failure propagates and the script exits non-zero:
    net.output); POST /profile on a replica while traffic flows (its trace
    must name flash_fwd; a concurrent one answers 409); GET /debug/timeline
    (each request's TTFT parts sum to its TTFT) and /debug/flightrecorder
-   (the router's events); two rolling deploys of a checkpoint saved from
+   (the router's events); a rolling deploy of a checkpoint saved from
    other weights under a stream of requests (no shed, generations bumped,
    swap seconds, the longest heartbeat gap against the lease, the graph
    pools not growing with a swap; afterwards the new weights' tokens and
@@ -172,11 +172,11 @@ Phases, in order; any failure propagates and the script exits non-zero:
    served by GET /debug/health;
 14. etl_dashboard: ETL at bench.py::bench_lenet's widths, then the
    dashboard on the health phase's flagship net. A MNIST-format CSV
-   (16,384 rows of a label and 784 integer pixels, ≈ 46 MB) and MNIST idx
+   (4,096 rows of a label and 784 integer pixels, ≈ 11.5 MB) and MNIST idx
    files written from the seed into a temporary directory: util/native.py
    must have built _fastcsv and the CSV must go through the native parser
    (its first 1,024 records bitwise equal to the Python path's); one
-   staged LeNet-5 epoch (16 steps of 1024, f32, adam 1e-3) fed by
+   staged LeNet-5 epoch (4 steps of 1024, f32, adam 1e-3) fed by
    RecordReaderDataSetIterator with the /255 scaling must end with
    parameters bitwise equal to the epoch fed by ArrayDataSetIterator over
    the same arrays; MnistDataSetIterator under DL4J_TPU_DATA_DIR (downloads
@@ -208,9 +208,31 @@ Phases, in order; any failure propagates and the script exits non-zero:
    trainers at 2 layers (the MoE net 1), bitwise equal to the plain step;
    a two-host ElasticTrainer fleet on threads whose committed average is
    the averaging rule's;
-16. a {"classic": ...}, a {"moe": ...}, a {"slice": ...}, a
-   {"substrate": ...}, a {"fleet": ...}, a {"distribution": ...} and an
-   {"etl_dashboard": ...} JSON line of those readings, a JSON line of
+16. embeddings (nlp/ and graph/; none of the flash kernels launches):
+   A. the engine at bench.py::bench_word2vec's widths (V 100,000, D 128,
+   65,536 pairs a step, 5 negatives; indices from the seed): one warm and
+   two timed rounds of ns_step_scan(K = 128): ms a step, pairs/s, one
+   round profiled (busy share, kernels by class), the step's gathers,
+   scatters and dense update timed alone, its bound from the touched rows;
+   one ns_step, skip-gram and CBOW, on the card against the same step on
+   the CPU from the same tables and batch (within EMBED_TOL), two card
+   runs bitwise equal, and the step with its rate × 1.001 caught;
+   B. Word2Vec.fit through the Builder on a Zipf (s = 1) corpus from the
+   seed (100,000 types, 500,000 tokens in sentences of 1,000; layer
+   128, window 5, 5 negatives, sampling 1e-3, one epoch): seconds of
+   tokenization, the vocabulary, pair generation, the copies and the
+   rest, pairs/s, and over a profiled window of 50 steps the busy share
+   and device ms a step; a small seeded fit (20,000 tokens) card against
+   CPU (syn0 and similarity); C. DeepWalk (hierarchical softmax) on a
+   preferential-attachment graph of BlogCatalog's size (10,312 vertices,
+   333,983 edges; vector 128, window 10, walks of 40, one per vertex):
+   walk, pair and fit seconds, pairs/s, the profiled window, hs_step ms;
+   a small graph card against CPU; D. ParagraphVectors (DBOW, DM, with
+   infer_vector) and GloVe at small sizes, each card against CPU;
+17. a {"classic": ...}, a {"moe": ...}, a {"slice": ...}, a
+   {"substrate": ...}, a {"fleet": ...}, a {"distribution": ...}, an
+   {"etl_dashboard": ...} and an {"embeddings": ...} JSON line of those
+   readings, a JSON line of
    the kernels (launches on the training path and per path, error,
    times, bound), the card line, and
    last {"ok": true, "device": {...}}.
@@ -250,6 +272,9 @@ from deeplearning4j_tpu_torch.datasets import (  # noqa: E402
 from deeplearning4j_tpu_torch.datavec import native as dv_native  # noqa: E402
 from deeplearning4j_tpu_torch.models import (  # noqa: E402
     char_rnn_lstm, lenet, resnet50, transformer_lm)
+from deeplearning4j_tpu_torch import graph as t_graph  # noqa: E402
+from deeplearning4j_tpu_torch import nlp as t_nlp  # noqa: E402
+from deeplearning4j_tpu_torch.nlp import learning as t_learning  # noqa: E402
 from deeplearning4j_tpu_torch.nn.conf import (  # noqa: E402
     InputType, NeuralNetConfiguration)
 from deeplearning4j_tpu_torch.nn.conf.attention import (  # noqa: E402
@@ -336,6 +361,9 @@ FAULT_KEYS = 64
 # /predict against net.output on the same ids: max|Δp| within 4 bf16 ulps
 # of the largest p (the same kernel route; only the batch differs).
 SERVE_TOL = 2.0 ** -5
+# Concurrent /predict requests of [1, 128] ids, each answered as [1, 128,
+# 32768] probabilities in JSON (seconds each); two still share a batch.
+SERVE_REQUESTS = 2
 ROW_SUM_TOL = 1e-2   # a bf16 softmax row over 32768 classes sums to 1
 
 # Backward kernels vs plain, on the same inputs on the card.
@@ -904,7 +932,8 @@ def phase_server(net):
     server = InferenceServer(net, max_batch=8, batch_timeout_ms=200.0)
     base = f"http://127.0.0.1:{server.port}"
     rng = np.random.default_rng(SEED + 2)
-    reqs = [rng.integers(0, 32768, (1, 128)).astype(np.int32) for _ in range(3)]
+    reqs = [rng.integers(0, 32768, (1, 128)).astype(np.int32)
+            for _ in range(SERVE_REQUESTS)]
     results = [None] * len(reqs)
 
     def call(i):
@@ -3223,7 +3252,10 @@ def phase_decode():
 # /predict answers [1, 128, 32768] probabilities as JSON through two hops
 # (10-16 s observed), so the router's attempt timeout is 60 s; the
 # failover step lowers it to 8 s, which a 32-token decode stays far below.
+# One rolling deploy: a second of the same checkpoint would repeat the
+# first's checks for 15-30 s.
 FLEET = {"layers": 4, "window": 256, "lanes": 4, "page_size": 16,
+         "deploys": 1,
          "prefill_chunk": 64,
          "new_tokens": 32, "prompts": {"g48": 48, "g100": 100, "g200": 200},
          "lease_s": 30.0, "heartbeat_s": 0.5, "attempt_timeout_s": 60.0,
@@ -3585,7 +3617,7 @@ def phase_fleet():
             raise AssertionError(f"the fleet path launched "
                                  f"{launches['fleet']}")
 
-        # 5. rolling deploys under a stream of requests, twice
+        # 5. a rolling deploy under a stream of requests
         saver.join()
         if "s" not in saved:
             raise AssertionError("the next model was not saved")
@@ -3596,7 +3628,7 @@ def phase_fleet():
         shed = router.registry.get("serving_shed_total")
         shed0 = shed.value(reason="no_replica")
         deploys = []
-        for round_ in range(2):
+        for round_ in range(FLEET["deploys"]):
             stop, codes = threading.Event(), []
 
             def load():
@@ -5059,9 +5091,11 @@ def elastic_on_card():
 # --------------------------------------------------------------------------
 
 # bench.py::bench_lenet's widths (LeNet-5, f32, adam 1e-3, batch 1024);
-# 16,384 rows of a label and 784 pixels, one epoch of 16 steps; the
-# dashboard: 8 fit_batch of the flagship, the listener at frequency 2.
-ETL = {"rows": 16384, "batch": 1024, "python_rows": 1024, "mnist_test": 1024}
+# 4,096 rows of a label and 784 pixels, one epoch of 4 steps (a CSV-fed
+# step takes ≈ 1.1 s of the reference's field-by-field iterator, and four
+# keep the bitwise gate against the array-fed epoch); the dashboard: 8
+# fit_batch of the flagship, the listener at frequency 2.
+ETL = {"rows": 4096, "batch": 1024, "python_rows": 1024, "mnist_test": 1024}
 DASHBOARD = {"steps": 8, "frequency": 2}
 DASHBOARD_ENDPOINTS = ("/api/sessions", "/api/overview?sid={sid}",
                        "/api/histograms?sid={sid}", "/api/flow?sid={sid}",
@@ -5431,6 +5465,553 @@ def phase_etl_dashboard(flagship):
     return {"etl": etl, "dashboard": dashboard}, launches
 
 
+# --------------------------------------------------------------------------
+# embeddings: the nlp/ and graph/ stack on the card
+# --------------------------------------------------------------------------
+
+# bench.py::bench_word2vec's widths (BASELINE #4): vocabulary, dim, pairs a
+# step, negatives, steps per ns_step_scan round, timed rounds; the CBOW gate
+# step's context half-width
+EMBED = {"V": 100_000, "D": 128, "B": 65_536, "negs": 5, "K": 128,
+         "rounds": 2, "cbow_window": 5}
+# Word2Vec.fit end to end: a Zipf (s = 1) corpus from the seed (text8, the
+# realistic corpus, has 17,005,207 tokens: run length cut), and the
+# small fit held card against CPU. Batches of 4096 pairs (SequenceVectors'
+# default): at bench_word2vec's 65,536 the summed loss of a Zipf text's
+# frequent words (thousands of collisions a batch) drives both packages'
+# tables past 1e20 (PERF.md §6)
+W2V_FIT = {"types": 100_000, "tokens": 500_000, "sentence": 1000,
+           "layer_size": 128, "window": 5, "negative": 5, "sampling": 1e-3,
+           "batch": 4096}
+W2V_GATE = {"types": 2_000, "tokens": 20_000, "sentence": 1000,
+            "layer_size": 64, "window": 5, "negative": 5, "sampling": 1e-3,
+            "batch": 4096}
+# DeepWalk on a synthetic graph of BlogCatalog's size (Perozzi et al.
+# 2014: 10,312 vertices, 333,983 edges) with the paper's widths; walks per
+# vertex cut from the paper's 80 to 1 (run length); batch: DeepWalk's
+# default. The small graph is the card-against-CPU gate.
+DEEPWALK = {"vertices": 10_312, "edges": 333_983, "vector_size": 128,
+            "window": 10, "walk_length": 40, "walks_per_vertex": 1,
+            "batch": 4096}
+DEEPWALK_GATE = {"vertices": 300, "edges": 3_000, "vector_size": 32,
+                 "window": 5, "walk_length": 20, "walks_per_vertex": 4,
+                 "batch": 1024}
+# card against CPU, about twice the differences read on an H100 (float
+# sums in another order on each device; both devices repeat their own
+# bits): one step's tables (2.98e-8, one ulp of the largest entries), and
+# whole seeded fits' vectors (Word2Vec 1.19e-7, DeepWalk 1.31e-6,
+# ParagraphVectors 3.58e-7, GloVe 2.53e-7)
+EMBED_TOL = {"step": 1e-7, "word2vec": 3e-7, "deepwalk": 3e-6,
+             "paragraph_vectors": 1e-6, "glove": 6e-7}
+EMBED_FAULT_LR = 1.001    # the planted fault: one step's rate 0.1% off
+EMBED_KERNEL_CLASSES = (
+    ("gather (index_select)", ("indexSelect", "index_select")),
+    ("scatter (radix sort + index_put)", ("indexing_backward", "RadixSort",
+                                          "index_put", "cub::")),
+    ("matmul", ("gemm", "gemv", "cutlass", "cublas", "xmma", "dot_kernel")),
+    ("reduction", ("reduce_kernel",)),
+    ("elementwise", ("elementwise", "Functor")))
+
+
+def tables_on(params, device):
+    return {k: v.detach().to(device, copy=True) for k, v in params.items()}
+
+
+def tables_diff(a, b) -> float:
+    return max((a[k].cpu() - b[k].cpu()).abs().max().item() for k in a)
+
+
+def tables_equal(a, b) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def zipf_sentences(rng, types, tokens, length):
+    """Sentences of ``length`` tokens "w<rank>" drawn with p(rank) ∝ 1/rank
+    (Zipf, s = 1) over ``types`` ranks."""
+    cdf = np.cumsum(1.0 / np.arange(1, types + 1))
+    cdf /= cdf[-1]
+    words = np.array([f"w{i}" for i in range(types)], dtype=object)
+    toks = words[np.searchsorted(cdf, rng.random(tokens))]
+    return [" ".join(toks[i:i + length]) for i in range(0, tokens, length)]
+
+
+def preferential_graph(n, e, rng):
+    """An undirected graph of ``n`` vertices and ``e`` edges grown by
+    preferential attachment (degree skew): a 65-vertex clique, then each
+    vertex joins with 32 or 33 distinct edges to vertices drawn in
+    proportion to their degree."""
+    m0 = 65
+    edges = [(i, j) for i in range(m0) for j in range(i + 1, m0)]
+    rest, k = e - len(edges), n - m0
+    per = np.full(k, rest // k)
+    per[:rest - int(per.sum())] += 1
+    ends = np.empty(2 * e, np.int64)
+    ends[:2 * len(edges)] = np.asarray(edges).reshape(-1)
+    ne = 2 * len(edges)
+    for v, m in zip(range(m0, n), per):
+        picks = ends[rng.integers(0, ne, size=4 * m)]
+        _, first = np.unique(picks, return_index=True)
+        targets = picks[np.sort(first)][:m]
+        edges.extend((v, int(t)) for t in targets)
+        ends[ne:ne + m] = v
+        ends[ne + m:ne + 2 * m] = targets
+        ne += 2 * m
+    g = t_graph.Graph(n)
+    for a, b in edges:
+        g.add_edge(a, b)
+    return g
+
+
+@contextlib.contextmanager
+def embedding_timers():
+    """Within the block, the host's shares of SequenceVectors/Word2Vec fits:
+    tokenization, the vocabulary (with its Huffman tables or unigram
+    table), pair generation with the negative draws, and the host side of
+    each batch's copy to the device; with the pairs and batches counted and
+    the first batch kept. ``on_batch``, when set, is called as each batch
+    is handed to the training loop."""
+    SV, W2V = t_nlp.SequenceVectors, t_nlp.Word2Vec
+    saved = (SV.build_vocab, SV._pairs, SV._draw_negatives, SV._to_device,
+             W2V._token_sequences)
+    t = {"tokenize_s": 0.0, "vocab_s": 0.0, "pairs_s": 0.0, "h2d_s": 0.0,
+         "pairs": 0, "batches": 0, "first": None, "on_batch": None}
+
+    def timed(key, fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                t[key] += time.perf_counter() - t0
+        return wrapper
+
+    def pairs(self, seqs, rng):
+        gen = saved[1](self, seqs, rng)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(gen, None)
+            t["pairs_s"] += time.perf_counter() - t0
+            if batch is None:
+                return
+            t["pairs"] += len(batch[0])
+            t["batches"] += 1
+            if t["first"] is None:
+                t["first"] = batch
+            if t["on_batch"] is not None:
+                t["on_batch"]()
+            yield batch
+
+    SV.build_vocab = timed("vocab_s", saved[0])
+    SV._pairs = pairs
+    SV._draw_negatives = timed("pairs_s", saved[2])
+    SV._to_device = timed("h2d_s", saved[3])
+    W2V._token_sequences = timed("tokenize_s", saved[4])
+    try:
+        yield t
+    finally:
+        (SV.build_vocab, SV._pairs, SV._draw_negatives, SV._to_device,
+         W2V._token_sequences) = saved
+
+
+def profiled_fit(fn, what, classes=None, top=5, window=None):
+    """(wall s, device ms, window s) of one call of ``fn`` under
+    torch.profiler, tracing the card's activity only; ``classes`` receives
+    the device ms by kernel class of ``EMBED_KERNEL_CLASSES``. With
+    ``window = (timers, skip, n)`` (``timers`` from
+    :func:`embedding_timers`) only the training steps of batches skip+1 ..
+    skip+n are traced and the device ms and window s are theirs: a whole
+    fit issues ~10^5 kernels, and gathering their events takes longer than
+    the fit (≈ 0.25 ms an event)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from torch.profiler import schedule
+    stamps, kw = [], {}
+    if window is not None:
+        tm, skip, n = window
+        kw["schedule"] = schedule(wait=skip, warmup=1, active=n, repeat=1)
+    with torch_profile(activities=[ProfilerActivity.CUDA], **kw) as prof:
+        if window is not None:
+            def on_batch():
+                prof.step()
+                stamps.append(time.perf_counter())
+            tm["on_batch"] = on_batch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            fn()
+        finally:
+            if window is not None:
+                tm["on_batch"] = None
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    span = wall
+    if window is not None:
+        if len(stamps) <= skip + n:
+            raise AssertionError(f"{what}: {len(stamps)} batches, fewer "
+                                 f"than the profiled window's {skip + n}")
+        span = stamps[skip + n] - stamps[skip]
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None
+              and "CUDA" in str(e.device_type)]
+    if not events:
+        print("profile: the profiler recorded no device kernels")
+        return wall, None, span
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    for e in events:
+        if classes is not None:
+            cls = next((c for c, keys in EMBED_KERNEL_CLASSES
+                        if any(k in e.key for k in keys)), "other")
+            classes[cls] = classes.get(cls, 0.0) + \
+                e.self_device_time_total / 1e3
+    print(f"profile: {what}, {total:.3f} ms of device time in "
+          f"{sum(e.count for e in events)} kernels over {span:.3f} s")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{100e-3 * e.self_device_time_total / total:5.1f}% "
+              f"x{e.count:<5d} {e.key[:90]}")
+    return wall, total, span
+
+
+EMBED_WINDOW = (100, 50)    # profiled steps of a fit: skip, then trace
+
+
+def host_split(tm, wall, dev_ms, span, walk_s=0.0):
+    """The fit's seconds by part (what is left: the steps' dispatch, the
+    HS path lookups and waits for the card), its pairs/s, and the device's
+    busy share and ms a step over the profiled window of EMBED_WINDOW[1]
+    steps (its device seconds for the whole fit: that rate times the
+    steps)."""
+    host = (walk_s + tm["tokenize_s"] + tm["vocab_s"] + tm["pairs_s"]
+            + tm["h2d_s"])
+    train = wall - walk_s - tm["tokenize_s"] - tm["vocab_s"]
+    step_ms = None if dev_ms is None else dev_ms / EMBED_WINDOW[1]
+    return {"wall_s": wall, "walk_s": walk_s, "tokenize_s": tm["tokenize_s"],
+            "vocab_s": tm["vocab_s"], "pairs_s": tm["pairs_s"],
+            "h2d_s": tm["h2d_s"], "other_host_s": wall - host,
+            "window_steps": EMBED_WINDOW[1], "window_s": span,
+            "device_ms_a_step": step_ms,
+            "device_s": None if dev_ms is None else
+            step_ms * tm["batches"] / 1e3,
+            "busy": None if dev_ms is None else dev_ms / (1e3 * span),
+            "pairs": tm["pairs"], "batches": tm["batches"],
+            "pairs_per_s_end_to_end": tm["pairs"] / wall,
+            "pairs_per_s_training": tm["pairs"] / train}
+
+
+def embed_engine(failures):
+    """Part A: ns_step_scan at bench_word2vec's widths, the step's parts and
+    its bound; one step card against CPU (skip-gram and CBOW), two card runs
+    bitwise equal, a planted rate fault caught."""
+    V, D, B, N, K = (EMBED[k] for k in ("V", "D", "B", "negs", "K"))
+    marks = [("start", time.perf_counter())]
+    params = t_learning.init_params(V, D, seed=3, device=DEV)
+    rng = np.random.default_rng(23)
+    centers, targets, negss = t_learning.to_device(
+        [rng.integers(0, V, (K, B)).astype(np.int32),
+         rng.integers(0, V, (K, B)).astype(np.int32),
+         rng.integers(0, V, (K, B, N)).astype(np.int32)], DEV)
+    lr = np.float32(0.025)
+    state = {"params": params}
+
+    def round_():
+        state["params"], losses = t_learning.ns_step_scan(
+            state["params"], centers, targets, negss, None, None, lr)
+        return losses
+
+    round_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(EMBED["rounds"]):
+        losses = round_()
+    losses = losses.cpu()
+    dt = time.perf_counter() - t0
+    gate(failures, bool(torch.isfinite(losses).all()),
+         "the engine's losses are finite")
+    marks.append(("rounds", time.perf_counter()))
+    steps = EMBED["rounds"] * K
+    step_ms, pairs_s = 1e3 * dt / steps, steps * B / dt
+    classes = {}
+    wall, dev_ms, _ = profiled_fit(round_, f"embedding engine, one round "
+                                   f"of {K} ns_steps at V {V}, D {D}, B {B}",
+                                   classes)
+
+    params = state["params"]
+    syn0, syn1 = params["syn0"], params["syn1neg"]
+    c, t, n = centers[0].long(), targets[0].long(), negss[0].long().reshape(-1)
+    gather_ms = cuda_ms(lambda: (syn0.index_select(0, c),
+                                 syn1.index_select(0, t),
+                                 syn1.index_select(0, n)), 10)
+    r0, r1, rn = syn0.index_select(0, c), syn1.index_select(0, t), \
+        syn1.index_select(0, n)
+    g0, g1 = torch.zeros_like(syn0), torch.zeros_like(syn1)
+    scatter_ms = cuda_ms(lambda: (
+        g0.index_put_((c,), r0, accumulate=True),
+        g1.index_put_((t,), r1, accumulate=True),
+        g1.index_put_((n,), rn, accumulate=True)), 10)
+
+    def dense():       # the update's dense passes; p - lr·0 keeps p
+        for p in (syn0, syn1):
+            p.sub_(torch.zeros_like(p).mul_(float(lr)))
+    dense_ms = cuda_ms(dense, 10)
+    u0 = torch.unique(centers[0]).numel()
+    u1 = torch.unique(torch.cat([targets[0], negss[0].reshape(-1)])).numel()
+    nbytes = 2 * (u0 + u1) * D * 4 + B * (2 + N) * 4
+    flops = 6 * B * (1 + N) * D
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    marks.append(("profile and parts", time.perf_counter()))
+    bound_ms = max(t_bytes, t_ops)
+    dense_bytes = 2 * 4 * V * D * 4          # fill, read-modify-write ×2
+    print(f"embeddings: engine {step_ms:.4f} ms a step, {pairs_s:.0f} "
+          f"pairs/s over {steps} steps; one profiled round {1e3 * wall:.1f} "
+          f"ms of wall, device {dev_ms} ms (busy "
+          f"{None if dev_ms is None else dev_ms / (1e3 * wall)}); by class "
+          f"{classes}; the step's gathers {gather_ms:.4f} ms, scatters "
+          f"{scatter_ms:.4f} ms, dense update {dense_ms:.4f} ms "
+          f"({dense_bytes / 1e6:.1f} MB); bound {bound_ms:.4f} ms "
+          f"({'bytes' if t_bytes >= t_ops else 'operations'}: {u0} + {u1} "
+          f"touched rows, {nbytes / 1e6:.1f} MB; {flops / 1e9:.3f} GFLOP), "
+          f"{100 * bound_ms / step_ms:.2f}% of the step")
+
+    W = EMBED["cbow_window"]
+    grng = np.random.default_rng(SEED + 50)
+    batch = [centers[0].cpu().numpy(), targets[0].cpu().numpy(),
+             negss[0].cpu().numpy(),
+             grng.integers(0, V, (B, 2 * W)).astype(np.int32),
+             (grng.random((B, 2 * W)) < 0.7).astype(np.float32)]
+    host = tables_on(params, "cpu")
+    gates = {}
+    cpu_s = 0.0
+    for cbow in (False, True):
+        outs = []
+        for device, rate in ((DEV, lr), (DEV, lr), ("cpu", lr),
+                             (DEV, np.float32(lr * EMBED_FAULT_LR))):
+            p = tables_on(host, device)
+            t1 = time.perf_counter()
+            t_learning.ns_step(p, *t_learning.to_device(batch, device), rate,
+                               cbow=cbow)
+            if device == "cpu":
+                cpu_s += time.perf_counter() - t1
+            outs.append(p)
+        card, again, cpu, fault = outs
+        gates["cbow" if cbow else "skip_gram"] = g = {
+            "card_vs_cpu": tables_diff(card, cpu),
+            "card_bitwise": tables_equal(card, again),
+            "fault_vs_cpu": tables_diff(fault, cpu),
+            "tolerance": EMBED_TOL["step"]}
+        g["fault_caught"] = g["fault_vs_cpu"] > EMBED_TOL["step"]
+        print(f"embeddings: one ns_step ({'cbow' if cbow else 'skip-gram'}) "
+              f"card against CPU {g['card_vs_cpu']:.3g} (tolerance "
+              f"{EMBED_TOL['step']}), two card runs bitwise equal: "
+              f"{g['card_bitwise']}; planted lr × {EMBED_FAULT_LR}: "
+              f"{g['fault_vs_cpu']:.3g}")
+        gate(failures, g["card_vs_cpu"] <= EMBED_TOL["step"]
+             < g["fault_vs_cpu"] and g["card_bitwise"],
+             f"one ns_step ({'cbow' if cbow else 'skip-gram'}) on the card")
+    marks.append(("gate", time.perf_counter()))
+    print("embeddings: engine part seconds " + ", ".join(
+        f"{k} {t - marks[i][1]:.2f}" for i, (k, t) in enumerate(marks[1:]))
+        + f" (the CPU steps {cpu_s:.2f})")
+    return {"V": V, "D": D, "B": B, "negatives": N, "K": K,
+            "rounds": EMBED["rounds"], "step_ms": step_ms,
+            "pairs_per_s": pairs_s, "profiled_round_ms": 1e3 * wall,
+            "device_ms": dev_ms,
+            "busy": None if dev_ms is None else dev_ms / (1e3 * wall),
+            "device_ms_by_class": classes, "gather_ms": gather_ms,
+            "scatter_ms": scatter_ms, "dense_update_ms": dense_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_share": bound_ms / step_ms, "touched_rows": [u0, u1],
+            "gate": gates}
+
+
+def word2vec(cfg, sentences, device):
+    return (t_nlp.Word2Vec.builder().layer_size(cfg["layer_size"])
+            .window_size(cfg["window"]).negative_sample(cfg["negative"])
+            .sampling(cfg["sampling"]).batch_size(cfg["batch"]).epochs(1)
+            .seed(7).iterate(t_nlp.CollectionSentenceIterator(sentences))
+            .tokenizer_factory(t_nlp.DefaultTokenizerFactory())
+            .device(device).build())
+
+
+def gate(failures, ok, what):
+    """A failed gate is listed; the phase raises after its last part, so one
+    run shows every part's readings."""
+    if not ok:
+        failures.append(what)
+
+
+def vectors_gate(failures, what, card, cpu, pairs, tol):
+    """Card against CPU for two fitted models: syn0 and ``similarity``."""
+    diff = float(np.abs(card._syn0() - cpu._syn0()).max())
+    sim = max(abs(card.similarity(a, b) - cpu.similarity(a, b))
+              for a, b in pairs)
+    print(f"embeddings: {what} card against CPU: syn0 {diff:.3g}, "
+          f"similarity {sim:.3g} (tolerance {tol})")
+    gate(failures, diff <= tol and sim <= tol,
+         f"{what}: the card's fit is off the CPU's")
+    return {"syn0": diff, "similarity": sim, "tolerance": tol}
+
+
+def embed_word2vec(failures):
+    """Part B: Word2Vec.fit through the Builder on the Zipf corpus; the
+    small seeded fit card against CPU."""
+    cfg = W2V_FIT
+    rng = np.random.default_rng(SEED + 51)
+    t0 = time.perf_counter()
+    sentences = zipf_sentences(rng, cfg["types"], cfg["tokens"],
+                               cfg["sentence"])
+    corpus_s = time.perf_counter() - t0
+    w2v = word2vec(cfg, sentences, DEV)
+    with embedding_timers() as tm:
+        wall, dev_ms, span = profiled_fit(
+            w2v.fit, "Word2Vec.fit, one epoch", window=(tm, *EMBED_WINDOW))
+    out = {"corpus_s": corpus_s, "words": w2v.vocab.num_words(),
+           **host_split(tm, wall, dev_ms, span)}
+    gate(failures, bool(np.isfinite(w2v._syn0()).all()),
+         "Word2Vec.fit's vectors are finite")
+    print(f"embeddings: Word2Vec.fit over {cfg['tokens']} tokens "
+          f"({out['words']} words; corpus made in {corpus_s:.2f} s): "
+          + ", ".join(f"{k} {v:.4g}" for k, v in out.items()
+                      if isinstance(v, float)))
+    t1 = time.perf_counter()
+    g = W2V_GATE
+    small = zipf_sentences(np.random.default_rng(SEED + 52), g["types"],
+                           g["tokens"], g["sentence"])
+    card, cpu = (word2vec(g, small, d).fit() for d in (DEV, "cpu"))
+    out["gate"] = vectors_gate(failures, "the small Word2Vec fit", card, cpu,
+                               [("w0", "w1"), ("w2", "w10"),
+                                ("w5", "w50")], EMBED_TOL["word2vec"])
+    out["gate"]["s"] = time.perf_counter() - t1
+    return out
+
+
+def embed_deepwalk(failures):
+    """Part C: DeepWalk (HS) on the BlogCatalog-sized graph: graph, walk and
+    fit seconds, pairs/s, hs_step ms; the small graph card against CPU."""
+    from deeplearning4j_tpu_torch.graph import deepwalk as dw_mod
+    cfg = DEEPWALK
+    t0 = time.perf_counter()
+    g = preferential_graph(cfg["vertices"], cfg["edges"],
+                           np.random.default_rng(SEED + 53))
+    graph_s = time.perf_counter() - t0
+    walk = {"s": 0.0}
+    plain = dw_mod.RandomWalkIterator
+
+    class TimedWalks(plain):
+        def __iter__(self):
+            it = super().__iter__()
+            while True:
+                t1 = time.perf_counter()
+                w = next(it, None)
+                walk["s"] += time.perf_counter() - t1
+                if w is None:
+                    return
+                yield w
+
+    def deepwalk(c, device):
+        return t_graph.DeepWalk(
+            vector_size=c["vector_size"], window_size=c["window"],
+            walk_length=c["walk_length"],
+            walks_per_vertex=c["walks_per_vertex"], batch_size=c["batch"],
+            seed=11, device=device)
+
+    dw = deepwalk(cfg, DEV)
+    dw_mod.RandomWalkIterator = TimedWalks
+    try:
+        with embedding_timers() as tm:
+            wall, dev_ms, span = profiled_fit(
+                lambda: dw.fit(g), "DeepWalk.fit", window=(tm, *EMBED_WINDOW))
+    finally:
+        dw_mod.RandomWalkIterator = plain
+    out = {"graph_s": graph_s, "max_degree": max(g.degree(v) for v in
+                                                 range(g.num_vertices())),
+           **host_split(tm, wall, dev_ms, span, walk["s"])}
+    sv = dw._sv
+    center, target, ctx, ctx_mask = tm["first"]
+    codes, points = sv._codes[target], sv._points[target]
+    cmask = (np.arange(codes.shape[1])[None, :]
+             < sv._lengths[target][:, None]).astype(np.float32)
+    args = t_learning.to_device(
+        [center, codes, points, cmask, ctx, ctx_mask], DEV)
+    p = tables_on(sv.params, DEV)
+    out["hs_step_ms"] = cuda_ms(lambda: t_learning.hs_step(
+        p, *args, np.float32(0.025)), 20)
+    out["code_length"] = int(codes.shape[1])
+    gate(failures, bool(np.isfinite(sv._syn0()).all()),
+         "DeepWalk.fit's vectors are finite")
+    print(f"embeddings: DeepWalk over {cfg['vertices']} vertices, "
+          f"{cfg['edges']} edges: " + ", ".join(
+              f"{k} {v:.4g}" for k, v in out.items() if isinstance(v, float)))
+    t1 = time.perf_counter()
+    c = DEEPWALK_GATE
+    small = preferential_graph(c["vertices"], c["edges"],
+                               np.random.default_rng(SEED + 54))
+    card, cpu = (deepwalk(c, d).fit(small) for d in (DEV, "cpu"))
+    out["gate"] = vectors_gate(failures, "the small DeepWalk fit",
+                               card._sv, cpu._sv,
+                               [("0", "1"), ("0", "200"), ("7", "150")],
+                               EMBED_TOL["deepwalk"])
+    out["gate"]["s"] = time.perf_counter() - t1
+    return out
+
+
+def embed_paragraphs_glove(failures):
+    """Part D: ParagraphVectors (DBOW, DM) with infer_vector, and GloVe, at
+    small sizes, each card against CPU."""
+    rng = np.random.default_rng(SEED + 55)
+    words = [f"w{i}" for i in range(120)]
+    docs = [(f"doc{i}", [words[j] for j in
+                         (rng.zipf(1.3, 24) - 1) % len(words)])
+            for i in range(80)]
+    out = {}
+    for dm in (False, True):
+        kw = dict(layer_size=32, window=3, epochs=5, seed=13, dm=dm,
+                  batch_size=512)
+        card, cpu = (t_nlp.ParagraphVectors(**kw, device=d)
+                     .fit_documents(docs) for d in (DEV, "cpu"))
+        tables = float(np.abs(card._host(card.params["syn0"])
+                              - cpu._host(cpu.params["syn0"])).max())
+        inferred = float(np.abs(card.infer_vector(docs[0][1], seed=1)
+                                - cpu.infer_vector(docs[0][1], seed=1)).max())
+        tol = EMBED_TOL["paragraph_vectors"]
+        out["dm" if dm else "dbow"] = {
+            "syn0": tables, "infer_vector": inferred, "tolerance": tol}
+        print(f"embeddings: ParagraphVectors ({'DM' if dm else 'DBOW'}) card "
+              f"against CPU: syn0 with the doc rows {tables:.3g}, "
+              f"infer_vector {inferred:.3g} (tolerance {tol})")
+        gate(failures, max(tables, inferred) <= tol,
+             f"ParagraphVectors ({'DM' if dm else 'DBOW'}) on the card")
+    seqs = [toks for _, toks in docs]
+    kw = dict(layer_size=32, window=3, epochs=10, seed=14, batch_size=512)
+    card, cpu = (t_nlp.Glove(**kw, device=d).fit(seqs) for d in (DEV, "cpu"))
+    out["glove"] = vectors_gate(failures, "GloVe", card, cpu,
+                                [("w0", "w1"), ("w2", "w30")],
+                                EMBED_TOL["glove"])
+    return out
+
+
+def phase_embeddings():
+    """The embedding stack on the card: parts A-D (see the module
+    docstring). Launches none of the flash kernels."""
+    for kn in KERNELS:
+        kn.launches = 0
+    out, failures = {}, []
+    for name, fn in (("engine", embed_engine), ("word2vec", embed_word2vec),
+                     ("deepwalk", embed_deepwalk),
+                     ("paragraph_vectors_glove", embed_paragraphs_glove)):
+        t0 = time.perf_counter()
+        out[name] = fn(failures)
+        out[name]["part_s"] = time.perf_counter() - t0
+        print(f"embeddings: part {name} {out[name]['part_s']:.3f} s",
+              file=sys.stderr, flush=True)
+    launches = {kn.name: kn.launches for kn in KERNELS}
+    gate(failures, not any(launches.values()),
+         f"the embedding path launches no flash kernel: {launches}")
+    if failures:
+        print(json.dumps({"embeddings": out}))
+        raise AssertionError(f"embeddings: failed gates {failures}")
+    return out, launches
+
+
 # Past this many seconds the run dumps every thread's stack to stderr and
 # exits non-zero: a hang or a slow machine then shows where it was, before
 # an outer time limit (1200 s) kills the process with nothing said.
@@ -5484,6 +6065,8 @@ def main():
     del flagship
     torch.cuda.empty_cache()
     distribution = timed_phase("distribution", phase_distribution)
+    embeddings, embedding_launches = timed_phase("embeddings",
+                                                 phase_embeddings)
 
     src = "deeplearning4j_tpu_torch/ops/csrc/"
     ref = "deeplearning4j_tpu/ops/flash_attention.py:"
@@ -5521,7 +6104,8 @@ def main():
             "moe_remat": moe_launches["remat"][k["name"]],
             "substrate": substrate_launches[k["name"]],
             "ring": distribution["ring_launches"][k["name"]],
-            "dashboard": dashboard_launches[k["name"]]}
+            "dashboard": dashboard_launches[k["name"]],
+            "embeddings": embedding_launches[k["name"]]}
     total = f"script {time.perf_counter() - T_START:.3f} s"
     print(total)
     print(f"chip_smoke: {total}", file=sys.stderr, flush=True)
@@ -5532,6 +6116,7 @@ def main():
     print(json.dumps(fleet))
     print(json.dumps({"distribution": distribution}))
     print(json.dumps({"etl_dashboard": etl_dashboard}))
+    print(json.dumps({"embeddings": embeddings}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

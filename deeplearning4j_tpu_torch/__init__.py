@@ -19,7 +19,9 @@ convolutional, normalisation and recurrent layers, the classic zoo
 and gradient checking; the training substrate: the async fit loop with
 staging on a side CUDA stream, durable snapshots with exact resume,
 checkpoint recovery, early stopping, the record pipeline and datasets,
-and the full-batch solvers.
+and the full-batch solvers; distribution, DataVec ETL and the dashboard;
+the embedding stack (``nlp``: Word2Vec, ParagraphVectors, GloVe, the
+vectorizers) and graph embeddings (``graph``: random walks, DeepWalk).
 """
 
 __version__ = "0.1.0"
@@ -27,7 +29,7 @@ __version__ = "0.1.0"
 # Lazy module surface: keep `import deeplearning4j_tpu_torch` light.
 _SUBMODULES = {"nn", "models", "ops", "optimize", "parallel", "serving",
                "util", "dtypes", "eval", "losses", "gradientcheck",
-               "data", "datasets", "earlystopping"}
+               "data", "datasets", "earlystopping", "nlp", "graph"}
 
 
 def __getattr__(name):
