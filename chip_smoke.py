@@ -229,10 +229,36 @@ Phases, in order; any failure propagates and the script exits non-zero:
    walk, pair and fit seconds, pairs/s, the profiled window, hs_step ms;
    a small graph card against CPU; D. ParagraphVectors (DBOW, DM, with
    infer_vector) and GloVe at small sizes, each card against CPU;
-17. a {"classic": ...}, a {"moe": ...}, a {"slice": ...}, a
+17. analysis (clustering/, plot/, modelimport/; none of the flash kernels
+   launches): A. k-means at the embedding table's width (n 100,000 points
+   of D 128 from a seeded mixture of 256 Gaussians, k 256, up to 100
+   iterations): the k-means++ seeding's host seconds, the iterations, ms
+   an iteration with its host read and the busy share over 20 profiled
+   iterations; one iteration card against CPU from the same centroids
+   (centroids within 1e-4 and cost within 1e-5 relative, assignments
+   equal but at near ties, which are counted); B. exact t-SNE on the card
+   (n 10,000 of D 128 from a 10-cluster mixture, perplexity 30, 500
+   iterations): at n 2,048 the calibrated P, one gradient and 20
+   iterations at learning rate 1 against the CPU (TSNE_TOL); the full
+   fit's seconds an iteration, the busy share over the exaggerated
+   iterations, finite coordinates, the final KL below the KL after
+   exaggeration, 1-NN label agreement ≥ 0.9; C. Barnes-Hut t-SNE on the
+   host (n 10,000, θ 0.5, 100 iterations; the C++ kernel must build):
+   seconds of kNN and P and of the iterations; POST /api/tsne with 500
+   vectors to UIServer(device="cuda") answers 200 and stores 500 finite
+   coordinates; D. Keras import on the card (from HDF5 files when h5py is
+   there, else from the config JSON and arrays a file holds): a Keras-2
+   LeNet-5, a two-layer LSTM(256) char-RNN over 65 symbols and the
+   functional Add/Concatenate model at 784/512, each forward on the card
+   against the CPU import within 1e-5, 5 fit steps with finite, falling
+   losses;
+18. examples: every example of deeplearning4j_tpu_torch/examples with
+   --smoke on the card, in this process (runpy) at one rank: seconds and
+   exit of each, flash kernel launches over all of them;
+19. a {"classic": ...}, a {"moe": ...}, a {"slice": ...}, a
    {"substrate": ...}, a {"fleet": ...}, a {"distribution": ...}, an
-   {"etl_dashboard": ...} and an {"embeddings": ...} JSON line of those
-   readings, a JSON line of
+   {"etl_dashboard": ...}, an {"embeddings": ...}, an {"analysis": ...}
+   and an {"examples": ...} JSON line of those readings, a JSON line of
    the kernels (launches on the training path and per path, error,
    times, bound), the card line, and
    last {"ok": true, "device": {...}}.
@@ -266,6 +292,10 @@ if not torch.cuda.is_available():
 from deeplearning4j_tpu_torch.data.pipeline import (  # noqa: E402
     RecordDataSetIterator)
 from deeplearning4j_tpu_torch.data.records import write_shard_set  # noqa: E402
+from deeplearning4j_tpu_torch import dtypes as t_dtypes  # noqa: E402
+from deeplearning4j_tpu_torch.clustering import KMeansClustering  # noqa: E402
+from deeplearning4j_tpu_torch.clustering import kmeans as t_kmeans  # noqa: E402
+from deeplearning4j_tpu_torch.clustering import native as t_sptree_native  # noqa: E402
 from deeplearning4j_tpu_torch import datavec  # noqa: E402
 from deeplearning4j_tpu_torch.datasets import (  # noqa: E402
     ArrayDataSetIterator, MnistDataSetIterator)
@@ -275,6 +305,9 @@ from deeplearning4j_tpu_torch.models import (  # noqa: E402
 from deeplearning4j_tpu_torch import graph as t_graph  # noqa: E402
 from deeplearning4j_tpu_torch import nlp as t_nlp  # noqa: E402
 from deeplearning4j_tpu_torch.nlp import learning as t_learning  # noqa: E402
+from deeplearning4j_tpu_torch.modelimport import KerasModelImport  # noqa: E402
+from deeplearning4j_tpu_torch.modelimport.keras import (  # noqa: E402
+    _import_arrays as keras_import_arrays)
 from deeplearning4j_tpu_torch.nn.conf import (  # noqa: E402
     InputType, NeuralNetConfiguration)
 from deeplearning4j_tpu_torch.nn.conf.attention import (  # noqa: E402
@@ -292,6 +325,7 @@ from deeplearning4j_tpu_torch.parallel import (  # noqa: E402
     ExpertParallelGraphTrainer, GraphPipelineTrainer, ParallelWrapper,
     SequenceParallelGraphTrainer, TensorParallelGraphTrainer, create_mesh,
     data_parallel_mesh, distributed)
+from deeplearning4j_tpu_torch.plot import tsne as t_tsne  # noqa: E402
 from deeplearning4j_tpu_torch.parallel.elastic import (  # noqa: E402
     ElasticConfig, ElasticTrainer, FileCoordinationStore,
     InMemoryCoordinationStore)
@@ -6012,6 +6046,528 @@ def phase_embeddings():
     return out, launches
 
 
+# ----------------------------------------------------------------------
+# analysis: k-means, t-SNE and Keras import (clustering/, plot/,
+# modelimport/; their reference paths are plain XLA, so none launches a
+# flash kernel)
+# ----------------------------------------------------------------------
+
+KMEANS = {"n": 100_000, "D": 128, "clusters": 256, "k": 256,
+          "max_iterations": 100, "spread": 0.5, "profiled": 20}
+# one iteration card against CPU: centroids and cost relative to their
+# scale; assignments equal but where the two nearest squared distances
+# lie within "tie" (relative) of each other
+KMEANS_TOL = {"centroids": 1e-4, "cost": 1e-5, "tie": 1e-5}
+TSNE = {"n": 10_000, "D": 128, "clusters": 10, "spread": 0.5,
+        "perplexity": 30.0, "max_iter": 500, "gate_n": 2048,
+        "gate_iters": 20}
+# card against CPU at gate_n, relative to the largest entry: P, one
+# gradient, 20 iterations at learning rate 1 (at the default 200 the map
+# is chaotic: two runs part after ≈ 5 iterations, tests/test_torch_tsne.py)
+TSNE_TOL = {"P": 1e-4, "grad": 1e-4, "iterations": 1e-4,
+            "nn_agreement": 0.9}
+# 100 of the /api/tsne default's 250 iterations: a cut of run length that
+# keeps the phase inside its 45 s (≈ 56 ms an iteration on the host)
+BH_TSNE = {"n": 10_000, "theta": 0.5, "perplexity": 30.0, "max_iter": 100,
+           "ui_vectors": 500}
+KERAS = {"batch": 64, "lstm_batch": 16, "T": 50, "chars": 65, "units": 256,
+         "steps": 5}
+KERAS_TOL = 1e-5     # the card's forward against the CPU's, probabilities
+
+
+def mixture(rng, n, d, clusters, spread):
+    """n f32 points of a Gaussian mixture (unit-normal centres, isotropic
+    noise of ``spread``) and their cluster labels."""
+    centres = rng.standard_normal((clusters, d), dtype=np.float32)
+    labels = rng.integers(0, clusters, n)
+    x = centres[labels] + np.float32(spread) * rng.standard_normal(
+        (n, d), dtype=np.float32)
+    return x, labels
+
+
+def rel_to_max(got, want) -> float:
+    """max|got - want| / max|want|, on the host in f64."""
+    got = torch.as_tensor(got).detach().double().cpu()
+    want = torch.as_tensor(want).detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def nn_agreement(y, labels) -> float:
+    """Share of points whose nearest other point (2-D) has their label."""
+    yt = torch.as_tensor(y, dtype=torch.float32, device=DEV)
+    d = torch.cdist(yt, yt)
+    d.fill_diagonal_(float("inf"))
+    return float((labels[d.argmin(1).cpu().numpy()] == labels).mean())
+
+
+def analysis_kmeans(failures):
+    """Part A: k-means at the embedding table's width; one iteration card
+    against CPU."""
+    c = KMEANS
+    t0 = time.perf_counter()
+    x, _ = mixture(np.random.default_rng(SEED + 60), c["n"], c["D"],
+                   c["clusters"], c["spread"])
+    data_s = time.perf_counter() - t0
+    km = KMeansClustering(k=c["k"], max_iterations=c["max_iterations"],
+                          seed=SEED, device=DEV)
+    seeded = {}
+    plain = km._kmeanspp_init
+
+    def timed_init(xs, rng):
+        t1 = time.perf_counter()
+        seeded["centroids"] = plain(xs, rng)
+        seeded["s"] = time.perf_counter() - t1
+        return seeded["centroids"]
+    km._kmeanspp_init = timed_init
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    km.fit(x)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    gate(failures, km.cost is not None and math.isfinite(km.cost)
+         and np.isfinite(km.centroids).all(), "k-means: a finite fit")
+
+    xt = torch.from_numpy(x).to(DEV)
+    c0 = torch.from_numpy(seeded["centroids"]).to(DEV)
+
+    def iterations():       # fit's loop: one host read of the cost each
+        cc = c0
+        for _ in range(c["profiled"]):
+            cc, _, cost = t_kmeans._kmeans_iter(xt, cc, k=c["k"])
+            float(cost)
+    iterations()
+    wall, dev_ms, _ = profiled_fit(
+        iterations, f"k-means, {c['profiled']} iterations at n {c['n']}, "
+        f"D {c['D']}, k {c['k']}")
+    ms_iter = 1e3 * wall / c["profiled"]
+    profile_s = time.perf_counter() - t0 - fit_s
+
+    card_c, card_a, card_cost = t_kmeans._kmeans_iter(xt, c0, k=c["k"])
+    xc, cc0 = torch.from_numpy(x), torch.from_numpy(seeded["centroids"])
+    t1 = time.perf_counter()
+    cpu_c, cpu_a, cpu_cost = t_kmeans._kmeans_iter(xc, cc0, k=c["k"])
+    cpu_s = time.perf_counter() - t1
+    with t_dtypes.exact_f32_matmul():
+        two = torch.topk(t_kmeans._sq_dists(xc, cc0), 2, dim=1,
+                         largest=False).values
+    near = (two[:, 1] - two[:, 0]).abs() <= \
+        KMEANS_TOL["tie"] * two.abs().max(dim=1).values
+    differ = card_a.cpu() != cpu_a
+    g = {"centroids": rel_to_max(card_c, cpu_c),
+         "cost": abs(float(card_cost) - float(cpu_cost))
+         / abs(float(cpu_cost)),
+         "near_ties": int(near.sum()), "flips": int(differ.sum()),
+         "flips_not_near_ties": int((differ & ~near).sum()),
+         "tolerance": KMEANS_TOL}
+    print(f"analysis: k-means one iteration card against CPU: centroids "
+          f"{g['centroids']:.3g}, cost {g['cost']:.3g} (tolerances "
+          f"{KMEANS_TOL}); {g['near_ties']} points with their two nearest "
+          f"within {KMEANS_TOL['tie']} of each other, {g['flips']} "
+          f"assignments differ, {g['flips_not_near_ties']} of them not at "
+          f"a near tie")
+    gate(failures, g["centroids"] <= KMEANS_TOL["centroids"]
+         and g["cost"] <= KMEANS_TOL["cost"]
+         and g["flips_not_near_ties"] == 0,
+         "k-means: one iteration on the card against the CPU")
+    out = {**{k: c[k] for k in ("n", "D", "k", "max_iterations")},
+           "data_s": data_s, "seeding_s": seeded["s"], "fit_s": fit_s,
+           "iterations": km.iterations_run, "cost": km.cost,
+           "ms_per_iteration": ms_iter, "profiled_iterations": c["profiled"],
+           "device_ms": dev_ms,
+           "busy": None if dev_ms is None else dev_ms / (1e3 * wall),
+           "cpu_iteration_s": cpu_s, "profile_s": profile_s, "gate": g}
+    print(f"analysis: k-means n {c['n']}, D {c['D']}, k {c['k']}: data "
+          f"{data_s:.2f} s, k-means++ seeding (host) {seeded['s']:.3f} s, "
+          f"fit {fit_s:.3f} s over {km.iterations_run} iterations; "
+          f"{ms_iter:.4f} ms an iteration (with its host read), busy "
+          f"{out['busy']}; the profiled iterations {profile_s:.3f} s, the "
+          f"CPU's iteration {cpu_s:.3f} s")
+    return out
+
+
+def analysis_tsne(failures):
+    """Part B: exact t-SNE on the card; P, one gradient and 20 iterations
+    at gate_n card against CPU."""
+    c = TSNE
+    x, labels = mixture(np.random.default_rng(SEED + 61), c["n"], c["D"],
+                        c["clusters"], c["spread"])
+    n_g, perp = c["gate_n"], c["perplexity"]
+    xg = x[:n_g]
+    t0 = time.perf_counter()
+    p_card = t_tsne._calibrated_P(torch.from_numpy(xg).to(DEV),
+                                  perplexity=perp)
+    p_cpu = t_tsne._calibrated_P(torch.from_numpy(xg), perplexity=perp)
+    yg = np.random.default_rng(SEED + 62).normal(size=(n_g, 2)).astype(
+        np.float32)
+    g_card, kl_card = t_tsne._tsne_grad(torch.from_numpy(yg).to(DEV),
+                                        p_cpu.to(DEV))
+    g_cpu, kl_cpu = t_tsne._tsne_grad(torch.from_numpy(yg), p_cpu)
+    kw = dict(perplexity=perp, max_iter=c["gate_iters"], seed=SEED,
+              learning_rate=1.0)
+    y_card = t_tsne.Tsne(**kw, device=DEV).fit_transform(xg)
+    y_cpu = t_tsne.Tsne(**kw, device="cpu").fit_transform(xg)
+    g = {"P": rel_to_max(p_card, p_cpu), "grad": rel_to_max(g_card, g_cpu),
+         "kl": abs(float(kl_card) - float(kl_cpu)) / abs(float(kl_cpu)),
+         "iterations": rel_to_max(y_card, y_cpu), "tolerance": TSNE_TOL,
+         "s": time.perf_counter() - t0}
+    print(f"analysis: exact t-SNE at n {n_g} card against CPU: P "
+          f"{g['P']:.3g}, one gradient {g['grad']:.3g} (KL {g['kl']:.3g}), "
+          f"{c['gate_iters']} iterations at learning rate 1 "
+          f"{g['iterations']:.3g} (tolerances {TSNE_TOL})")
+    gate(failures, g["P"] <= TSNE_TOL["P"] and g["grad"] <= TSNE_TOL["grad"]
+         and g["kl"] <= TSNE_TOL["grad"]
+         and g["iterations"] <= TSNE_TOL["iterations"],
+         "exact t-SNE on the card against the CPU")
+    del p_card, p_cpu
+
+    t0 = time.perf_counter()
+    warm = t_tsne.Tsne(perplexity=perp, max_iter=c["gate_iters"], seed=SEED,
+                       device=DEV)
+    warm.fit_transform(x)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    P = t_tsne._calibrated_P(torch.from_numpy(x).to(DEV), perplexity=perp)
+    torch.cuda.synchronize()
+    calibrate_s = time.perf_counter() - t0
+    early = t_tsne.Tsne(perplexity=perp, seed=SEED, device=DEV)
+    early.max_iter = early.exaggeration_iters
+    t1 = time.perf_counter()
+    wall, dev_ms, _ = profiled_fit(
+        lambda: early.fit_transform(x),
+        f"exact t-SNE, the {early.max_iter} exaggerated iterations at n "
+        f"{c['n']}")
+    profile_s = time.perf_counter() - t1
+    kl_early = float(t_tsne._tsne_grad(
+        torch.from_numpy(early.embedding).to(DEV), P)[1])
+    del P
+    model = t_tsne.Tsne(perplexity=perp, max_iter=c["max_iter"], seed=SEED,
+                        device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = model.fit_transform(x)
+    fit_s = time.perf_counter() - t0
+    agree = nn_agreement(y, labels)
+    out = {"n": c["n"], "D": c["D"], "perplexity": perp,
+           "max_iter": c["max_iter"], "fit_s": fit_s,
+           "calibrate_s": calibrate_s,
+           "s_per_iteration": (fit_s - calibrate_s) / c["max_iter"],
+           "kl": model.kl_divergence, "kl_after_exaggeration": kl_early,
+           "nn_agreement": agree, "warm_s": warm_s, "profile_s": profile_s,
+           "profiled_s": wall, "device_ms": dev_ms,
+           "busy": None if dev_ms is None else dev_ms / (1e3 * wall),
+           "gate": g}
+    print(f"analysis: exact t-SNE n {c['n']}, D {c['D']}, perplexity "
+          f"{perp}: fit {fit_s:.3f} s ({calibrate_s:.3f} s of it the "
+          f"calibration), {1e3 * out['s_per_iteration']:.3f} ms an "
+          f"iteration; KL {model.kl_divergence:.4f} (after exaggeration "
+          f"{kl_early:.4f}); 1-NN label agreement in 2-D {agree:.4f}; busy "
+          f"{out['busy']} over the profiled {early.max_iter} iterations "
+          f"({profile_s:.3f} s with the profiler; a warm-up fit of "
+          f"{c['gate_iters']} iterations {warm_s:.3f} s; the gate "
+          f"{g['s']:.3f} s)")
+    gate(failures, bool(np.isfinite(y).all()) and y.shape == (c["n"], 2)
+         and model.kl_divergence < kl_early
+         and agree >= TSNE_TOL["nn_agreement"],
+         "exact t-SNE: finite, KL falling after exaggeration, clusters kept")
+    return out
+
+
+def analysis_barnes_hut(failures):
+    """Part C: Barnes-Hut t-SNE on the host through the C++ gradient; the
+    dashboard's POST /api/tsne on the card."""
+    c = BH_TSNE
+    gate(failures, t_sptree_native.load() is not None,
+         "the Barnes-Hut C++ kernel builds (clustering/_sptree.cpp)")
+    x, labels = mixture(np.random.default_rng(SEED + 63), c["n"],
+                        TSNE["D"], TSNE["clusters"], TSNE["spread"])
+    knn = {"s": 0.0}
+    plain = t_tsne._knn_sparse_p
+
+    def timed_knn(*a, **kw):
+        t1 = time.perf_counter()
+        r = plain(*a, **kw)
+        knn["s"] += time.perf_counter() - t1
+        return r
+    model = t_tsne.BarnesHutTsne(theta=c["theta"],
+                                 perplexity=c["perplexity"],
+                                 max_iter=c["max_iter"], seed=SEED,
+                                 device=DEV)
+    t_tsne._knn_sparse_p = timed_knn
+    try:
+        t0 = time.perf_counter()
+        y = model.fit_transform(x.astype(np.float64))
+        wall = time.perf_counter() - t0
+    finally:
+        t_tsne._knn_sparse_p = plain
+    agree = nn_agreement(y, labels)
+    out = {"n": c["n"], "theta": c["theta"], "max_iter": c["max_iter"],
+           "wall_s": wall, "knn_p_s": knn["s"],
+           "iterations_s": wall - knn["s"],
+           "s_per_iteration": (wall - knn["s"]) / c["max_iter"],
+           "kl": model.kl_divergence, "nn_agreement": agree}
+    print(f"analysis: Barnes-Hut t-SNE n {c['n']}, theta {c['theta']} "
+          f"(host, native gradient): {wall:.3f} s = kNN and P "
+          f"{knn['s']:.3f} s + {c['max_iter']} iterations "
+          f"{out['iterations_s']:.3f} s; KL {model.kl_divergence:.4f}, "
+          f"1-NN agreement {agree:.4f}")
+    gate(failures, bool(np.isfinite(y).all())
+         and agree >= TSNE_TOL["nn_agreement"],
+         "Barnes-Hut t-SNE: finite, clusters kept")
+
+    st = InMemoryStatsStorage()
+    srv = UIServer(port=0, device=DEV).attach(st)
+    try:
+        t0 = time.perf_counter()
+        code, body = fleet_request(srv.port, "/api/tsne", {
+            "sid": "vectors", "vectors": x[:c["ui_vectors"]].tolist(),
+            "labels": [int(v) for v in labels[:c["ui_vectors"]]]})
+        post_s = time.perf_counter() - t0
+        got_code, got = fleet_request(srv.port, "/api/tsne?sid=vectors")
+    finally:
+        srv.stop()
+    coords = np.asarray(got.get("coords", []), dtype=np.float64)
+    out["ui"] = {"status": code, "body": body, "post_s": post_s,
+                 "stored": list(coords.shape)}
+    print(f"analysis: POST /api/tsne with {c['ui_vectors']} vectors -> "
+          f"{code} {body} in {post_s:.3f} s; GET -> {got_code}, coords "
+          f"{coords.shape}")
+    gate(failures, code == 200 and got_code == 200
+         and coords.shape == (c["ui_vectors"], 2)
+         and bool(np.isfinite(coords).all()),
+         "POST /api/tsne embeds the vectors on the card")
+    return out
+
+
+def keras_dense(name, units, act, **cfg):
+    return {"class_name": "Dense",
+            "config": {"name": name, "units": units, "activation": act,
+                       **cfg}}
+
+
+def keras_models(rng):
+    """The three Keras-2 models at full width, random weights from the
+    seed: {name: (model_config, {layer: {array: value}}, x, y)}."""
+    def w(*shape):
+        return (rng.standard_normal(shape, dtype=np.float32)
+                * np.float32(np.sqrt(2.0 / np.prod(shape[:-1]))))
+
+    def b(n):
+        return 0.01 * rng.standard_normal(n, dtype=np.float32)
+
+    def one_hot(ids, n):
+        return np.eye(n, dtype=np.float32)[ids]
+
+    def mnist_like(shape):  # MNIST lights ≈ 19% of its pixels
+        return ((rng.random(shape) < 0.19)
+                * rng.random(shape)).astype(np.float32)
+    B = KERAS["batch"]
+    lenet = {"class_name": "Sequential", "config": {"name": "lenet",
+                                                    "layers": [
+        {"class_name": "Conv2D", "config": {
+            "name": "conv1", "filters": 20, "kernel_size": [5, 5],
+            "strides": [1, 1], "padding": "valid", "activation": "relu",
+            "data_format": "channels_last",
+            "batch_input_shape": [None, 28, 28, 1]}},
+        {"class_name": "MaxPooling2D", "config": {
+            "name": "pool1", "pool_size": [2, 2], "strides": [2, 2]}},
+        {"class_name": "Conv2D", "config": {
+            "name": "conv2", "filters": 50, "kernel_size": [5, 5],
+            "strides": [1, 1], "padding": "valid", "activation": "relu",
+            "data_format": "channels_last"}},
+        {"class_name": "MaxPooling2D", "config": {
+            "name": "pool2", "pool_size": [2, 2], "strides": [2, 2]}},
+        {"class_name": "Flatten", "config": {"name": "flatten"}},
+        keras_dense("dense1", 500, "relu"),
+        keras_dense("dense2", 10, "softmax")]}}
+    lenet_w = {"conv1": {"kernel": w(5, 5, 1, 20), "bias": b(20)},
+               "conv2": {"kernel": w(5, 5, 20, 50), "bias": b(50)},
+               "dense1": {"kernel": w(800, 500), "bias": b(500)},
+               "dense2": {"kernel": w(500, 10), "bias": b(10)}}
+    lenet_x = mnist_like((B, 28, 28, 1))
+    lenet_y = one_hot(rng.integers(0, 10, B), 10)
+
+    T, V, H = KERAS["T"], KERAS["chars"], KERAS["units"]
+    lstm = {"class_name": "Sequential", "config": {"name": "char_rnn",
+                                                   "layers": [
+        {"class_name": "LSTM", "config": {
+            "name": f"lstm_{i}", "units": H, "activation": "tanh",
+            "recurrent_activation": "hard_sigmoid", "return_sequences": True,
+            **({"batch_input_shape": [None, T, V]} if i == 1 else {})}}
+        for i in (1, 2)] + [
+        {"class_name": "TimeDistributed", "config": {
+            "name": "td", "layer": keras_dense("chars", V, "softmax")}}]}}
+    lstm_w = {f"lstm_{i}": {"kernel": w(V if i == 1 else H, 4 * H),
+                            "recurrent_kernel": w(H, 4 * H),
+                            "bias": b(4 * H)} for i in (1, 2)}
+    lstm_w["td"] = {"kernel": w(H, V), "bias": b(V)}
+    ids = rng.integers(0, V, (KERAS["lstm_batch"], T + 1))
+    lstm_x, lstm_y = one_hot(ids[:, :-1], V), one_hot(ids[:, 1:], V)
+
+    def node(*names):
+        return [[[n, 0, 0, {}] for n in names]]
+    functional = {"class_name": "Model", "config": {
+        "name": "func", "layers": [
+            {"class_name": "InputLayer", "name": "input_1",
+             "config": {"name": "input_1", "batch_input_shape": [None, 784]},
+             "inbound_nodes": []},
+            {**keras_dense("dense_a", 512, "relu"), "name": "dense_a",
+             "inbound_nodes": node("input_1")},
+            {**keras_dense("dense_b", 512, "relu"), "name": "dense_b",
+             "inbound_nodes": node("input_1")},
+            {"class_name": "Add", "name": "add_1",
+             "config": {"name": "add_1"},
+             "inbound_nodes": node("dense_a", "dense_b")},
+            {"class_name": "Concatenate", "name": "cat_1",
+             "config": {"name": "cat_1"},
+             "inbound_nodes": node("add_1", "input_1")},
+            {**keras_dense("out", 3, "softmax"), "name": "out",
+             "inbound_nodes": node("cat_1")}],
+        "input_layers": [["input_1", 0, 0]],
+        "output_layers": [["out", 0, 0]]}}
+    functional_w = {"dense_a": {"kernel": w(784, 512), "bias": b(512)},
+                    "dense_b": {"kernel": w(784, 512), "bias": b(512)},
+                    "out": {"kernel": w(1296, 3), "bias": b(3)}}
+    func_x = mnist_like((B, 784))
+    func_y = one_hot(rng.integers(0, 3, B), 3)
+    return {"lenet5": (lenet, lenet_w, lenet_x, lenet_y),
+            "char_rnn_lstm": (lstm, lstm_w, lstm_x, lstm_y),
+            "functional": (functional, functional_w, func_x, func_y)}
+
+
+def write_keras_h5(path, config, weights):
+    """A Keras-2 HDF5 archive: model_config and model_weights/<layer>/
+    <layer>/<array>:0."""
+    import h5py
+    with h5py.File(path, "w") as f:
+        f.attrs["model_config"] = json.dumps(config).encode()
+        mw = f.create_group("model_weights")
+        for name, arrays in weights.items():
+            grp = mw.create_group(name)
+            for key, a in arrays.items():
+                grp.create_dataset(f"{name}/{key}:0", data=a)
+
+
+def analysis_keras(failures, tmp):
+    """Part D: three Keras-2 models imported on the card and on the CPU
+    (from HDF5 files when h5py is there, else from the config JSON and
+    arrays a file holds): forwards within KERAS_TOL, 5 fit steps."""
+    try:
+        import h5py  # noqa: F401
+        route = "h5py"
+    except ImportError:
+        route = "config and arrays"
+    print(f"analysis: Keras import through {route} (h5py "
+          f"{'present' if route == 'h5py' else 'absent'} on this machine)")
+    out = {"route": route}
+    for name, (config, weights, x, y) in keras_models(
+            np.random.default_rng(SEED + 64)).items():
+        t0 = time.perf_counter()
+        if route == "h5py":
+            path = os.path.join(tmp, f"{name}.h5")
+            write_keras_h5(path, config, weights)
+            card = KerasModelImport.import_model(path, device=DEV)
+            cpu = KerasModelImport.import_model(path, device="cpu")
+        else:
+            card = keras_import_arrays(config, weights, device=DEV)
+            cpu = keras_import_arrays(config, weights, device="cpu")
+        import_s = time.perf_counter() - t0
+        err = float((card.output(x).double().cpu()
+                     - cpu.output(x).double()).abs().max())
+        xs, ys = ([x], [y]) if isinstance(card, ComputationGraph) else (x, y)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [float(card.fit_batch(xs, ys)) for _ in range(KERAS["steps"])]
+        fit_s = time.perf_counter() - t0
+        out[name] = {"forward_err": err, "tolerance": KERAS_TOL,
+                     "losses": losses, "import_s": import_s, "fit_s": fit_s,
+                     "parameters": sum(t.numel() for lp in card.params.values()
+                                       for t in lp.values())}
+        print(f"analysis: Keras {name} ({out[name]['parameters']} "
+              f"parameters): imported twice in {import_s:.3f} s; forward "
+              f"card against CPU {err:.3g} (tolerance {KERAS_TOL}); "
+              f"{KERAS['steps']} fit steps on the card {fit_s:.3f} s, "
+              f"losses {[round(v, 5) for v in losses]}")
+        gate(failures, err <= KERAS_TOL and all(map(math.isfinite, losses))
+             and losses[-1] < losses[0], f"Keras {name} on the card")
+    return out
+
+
+def phase_analysis():
+    """k-means, t-SNE and Keras import on the card: parts A-D (see the
+    module docstring). Launches none of the flash kernels."""
+    for kn in KERNELS:
+        kn.launches = 0
+    out, failures = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fn in (("kmeans", analysis_kmeans),
+                         ("tsne", analysis_tsne),
+                         ("barnes_hut", analysis_barnes_hut),
+                         ("keras", lambda f: analysis_keras(f, tmp))):
+            t0 = time.perf_counter()
+            out[name] = fn(failures)
+            out[name]["part_s"] = time.perf_counter() - t0
+            print(f"analysis: part {name} {out[name]['part_s']:.3f} s "
+                  f"({card_line()})", flush=True)
+    launches = {kn.name: kn.launches for kn in KERNELS}
+    gate(failures, not any(launches.values()),
+         f"the analysis path launches no flash kernel: {launches}")
+    if failures:
+        print(json.dumps({"analysis": out}))
+        raise AssertionError(f"analysis: failed gates {failures}")
+    return out, launches
+
+
+EXAMPLES_DIR = Path(__file__).resolve().parent / "deeplearning4j_tpu_torch" \
+    / "examples"
+WORLD_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
+
+
+def phase_examples():
+    """Every example of the port with --smoke on the card, in this process
+    (runpy) at one rank: seconds each, each one's exit, and the flash
+    kernels' launches over all of them."""
+    import runpy
+    import traceback
+    names = sorted(p.stem for p in EXAMPLES_DIR.glob("*.py")
+                   if not p.stem.startswith("_"))
+    for kn in KERNELS:
+        kn.launches = 0
+    saved_argv = sys.argv
+    saved_env = {k: os.environ.pop(k) for k in WORLD_ENV if k in os.environ}
+    out, failures = {}, []
+    try:
+        for name in names:
+            sys.argv = [name, "--smoke"]
+            t0 = time.perf_counter()
+            try:
+                runpy.run_module(f"deeplearning4j_tpu_torch.examples.{name}",
+                                 run_name="__main__")
+                ok = True
+            except SystemExit as e:
+                ok = e.code in (None, 0)
+            except Exception:
+                traceback.print_exc()
+                ok = False
+            torch.cuda.synchronize()
+            out[name] = {"s": time.perf_counter() - t0, "ok": ok}
+            print(f"examples: {name} {out[name]['s']:.3f} s, "
+                  f"{'exit 0' if ok else 'FAILED'} ({card_line()})",
+                  flush=True)
+            if not ok:
+                failures.append(name)
+    finally:
+        sys.argv = saved_argv
+        os.environ.update(saved_env)
+        distributed.shutdown()      # the one-rank group an example formed
+    launches = {kn.name: kn.launches for kn in KERNELS}
+    print(f"examples: flash kernel launches over the {len(names)} examples "
+          f"{launches}")
+    if failures:
+        raise AssertionError(f"examples: failed {failures}")
+    return out, launches
+
+
 # Past this many seconds the run dumps every thread's stack to stderr and
 # exits non-zero: a hang or a slow machine then shows where it was, before
 # an outer time limit (1200 s) kills the process with nothing said.
@@ -6067,6 +6623,8 @@ def main():
     distribution = timed_phase("distribution", phase_distribution)
     embeddings, embedding_launches = timed_phase("embeddings",
                                                  phase_embeddings)
+    analysis, analysis_launches = timed_phase("analysis", phase_analysis)
+    examples, example_launches = timed_phase("examples", phase_examples)
 
     src = "deeplearning4j_tpu_torch/ops/csrc/"
     ref = "deeplearning4j_tpu/ops/flash_attention.py:"
@@ -6105,7 +6663,9 @@ def main():
             "substrate": substrate_launches[k["name"]],
             "ring": distribution["ring_launches"][k["name"]],
             "dashboard": dashboard_launches[k["name"]],
-            "embeddings": embedding_launches[k["name"]]}
+            "embeddings": embedding_launches[k["name"]],
+            "analysis": analysis_launches[k["name"]],
+            "examples": example_launches[k["name"]]}
     total = f"script {time.perf_counter() - T_START:.3f} s"
     print(total)
     print(f"chip_smoke: {total}", file=sys.stderr, flush=True)
@@ -6117,6 +6677,8 @@ def main():
     print(json.dumps({"distribution": distribution}))
     print(json.dumps({"etl_dashboard": etl_dashboard}))
     print(json.dumps({"embeddings": embeddings}))
+    print(json.dumps({"analysis": analysis}))
+    print(json.dumps({"examples": examples}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,25 +11,33 @@ Entry points (``ComputationGraph``, ``util.serialization.load_model``,
 ``serving.InferenceServer``) run on ``device="cuda"`` unless the caller
 passes ``device="cpu"``; without a card they raise instead of falling back.
 
-Ported so far: the transformer-LM flagship from configuration through
-training, decode and the serving tier (the HTTP front, the fleet and the
-training-health telemetry); the list DSL and ``MultiLayerNetwork``, the
-convolutional, normalisation and recurrent layers, the classic zoo
-(LeNet-5, ResNet, char-RNN, AlexNet, VGG-16), classification evaluation
-and gradient checking; the training substrate: the async fit loop with
-staging on a side CUDA stream, durable snapshots with exact resume,
-checkpoint recovery, early stopping, the record pipeline and datasets,
-and the full-batch solvers; distribution, DataVec ETL and the dashboard;
-the embedding stack (``nlp``: Word2Vec, ParagraphVectors, GloVe, the
-vectorizers) and graph embeddings (``graph``: random walks, DeepWalk).
+Ported: every module of the JAX package. The transformer-LM flagship
+from configuration through training, decode and the serving tier (the
+HTTP front, the fleet and the training-health telemetry); the list DSL and
+``MultiLayerNetwork``, the convolutional, normalisation and recurrent
+layers, the classic zoo (LeNet-5, ResNet, char-RNN, AlexNet, VGG-16),
+classification evaluation and gradient checking; the training substrate:
+the async fit loop with staging on a side CUDA stream, durable snapshots
+with exact resume, checkpoint recovery, early stopping, the record
+pipeline and datasets, and the full-batch solvers; distribution, DataVec
+ETL and the dashboard; the embedding stack (``nlp``: Word2Vec,
+ParagraphVectors, GloVe, the vectorizers) and graph embeddings (``graph``:
+random walks, DeepWalk); clustering (k-means on the device, the KD-, VP-
+and Barnes-Hut trees), t-SNE (``plot``), Keras import (``modelimport``),
+named seeds (``rng``) and the examples (``examples``, run as
+``python -m deeplearning4j_tpu_torch.examples.<name>``).
 """
 
 __version__ = "0.1.0"
 
 # Lazy module surface: keep `import deeplearning4j_tpu_torch` light.
-_SUBMODULES = {"nn", "models", "ops", "optimize", "parallel", "serving",
-               "util", "dtypes", "eval", "losses", "gradientcheck",
-               "data", "datasets", "earlystopping", "nlp", "graph"}
+# The JAX package's list (``serving`` and ``datavec`` are imported by name
+# in both).
+_SUBMODULES = {
+    "nn", "optimize", "eval", "data", "datasets", "parallel", "models",
+    "nlp", "graph", "modelimport", "ui", "util", "ops", "losses", "dtypes",
+    "rng", "earlystopping", "clustering", "plot", "storage", "gradientcheck",
+}
 
 
 def __getattr__(name):

@@ -9,6 +9,7 @@ the port does not need it).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -84,3 +85,15 @@ def resolve_device(device) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the "
             "CPU")
     return dev
+
+
+@contextlib.contextmanager
+def exact_f32_matmul():
+    """f32 products in full f32 inside the block (no TF32 or bf16 passes,
+    whatever the process-wide setting); the setting is restored on exit."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)

@@ -471,7 +471,8 @@ class _Handler(BaseHTTPRequestHandler):
                         n_components=2,
                         perplexity=float(payload.get("perplexity", 30.0)),
                         max_iter=int(payload.get("iterations", 250)),
-                        seed=int(payload.get("seed", 0)))
+                        seed=int(payload.get("seed", 0)),
+                        device=self.device)
                     coords = np.round(ts.fit_transform(vecs), 4).tolist()
                 from ..storage.stats_storage import Persistable
                 import time as _time
@@ -505,13 +506,19 @@ class _Handler(BaseHTTPRequestHandler):
 
 class UIServer:
     """``UIServer.get_instance().attach(storage)`` then browse
-    ``http://localhost:<port>`` (parity: ``api/UIServer.java``)."""
+    ``http://localhost:<port>`` (parity: ``api/UIServer.java``).
+
+    ``device`` is where ``POST /api/tsne`` embeds raw vectors with t-SNE
+    (``"cuda"`` unless the caller passes ``"cpu"``); it is resolved only
+    when such a request comes."""
 
     _instance: Optional["UIServer"] = None
 
     def __init__(self, port: int = 9000,
-                 registry: Optional[_metrics.MetricsRegistry] = None):
+                 registry: Optional[_metrics.MetricsRegistry] = None,
+                 device="cuda"):
         self.port = port
+        self.device = device
         # default: the process registry, so a dashboard scrape sees the
         # training process's MetricsListener / storage-routing counters
         self.registry = registry if registry is not None \
@@ -532,7 +539,8 @@ class UIServer:
         self.storage = storage
         if self._httpd is None:
             handler = type("BoundHandler", (_Handler,),
-                           {"storage": storage, "registry": self.registry})
+                           {"storage": storage, "registry": self.registry,
+                            "device": self.device})
             self._httpd = ThreadingHTTPServer(("127.0.0.1", self.port), handler)
             self.port = self._httpd.server_address[1]
             self._thread = threading.Thread(

@@ -127,9 +127,6 @@ def _tensor(a: np.ndarray, dtype_name=None) -> torch.Tensor:
     return t.to(_dtypes.torch_dtype(dtype_name)) if dtype_name else t
 
 
-_MODEL_CLASSES = ("ComputationGraph", "MultiLayerNetwork")
-
-
 def _network(conf, device):
     """The runtime for a configuration: a ``MultiLayerNetwork`` over a
     ``MultiLayerConfiguration``, else a ``ComputationGraph``."""
@@ -165,21 +162,19 @@ def params_from_numpy(conf, arrays: Dict[str, np.ndarray], *, device="cuda",
 
 
 def load_model(path: str, device="cuda"):
-    """Load a checkpoint zip written by either package into a
-    :class:`ComputationGraph` or :class:`MultiLayerNetwork` (as its
-    ``training_state.json`` names) on ``device`` (``"cuda"`` by default;
-    pass ``device="cpu"`` for the CPU): parameters, layer state (BN running
-    statistics), the optimizer state and the counters."""
+    """Load a checkpoint zip written by either package on ``device``
+    (``"cuda"`` by default; pass ``device="cpu"`` for the CPU): parameters,
+    layer state (BN running statistics), the optimizer state and the
+    counters. As in the reference, a :class:`ComputationGraph` when its
+    ``training_state.json`` names that class, else a
+    :class:`MultiLayerNetwork` (any other recorded name, such as a
+    subclass's, or none)."""
     from ..nn.conf.graph import ComputationGraphConfiguration
-    from ..nn.conf.layers import NotYetPorted
     from ..nn.conf.multi_layer import MultiLayerConfiguration
     config_json, arrays, training_state, dtype_map = _read(path)
-    model_class = training_state.get("model_class")
-    if model_class not in _MODEL_CLASSES:
-        raise NotYetPorted(f"{path}: model class {model_class!r} is not yet "
-                           "ported to the PyTorch package")
-    conf = (MultiLayerConfiguration if model_class == "MultiLayerNetwork"
-            else ComputationGraphConfiguration).from_json(config_json)
+    conf = (ComputationGraphConfiguration
+            if training_state.get("model_class") == "ComputationGraph"
+            else MultiLayerConfiguration).from_json(config_json)
     net = params_from_numpy(conf, arrays, device=device, dtype_map=dtype_map)
     for key, a in arrays.items():
         head, _, rest = key.partition("/")

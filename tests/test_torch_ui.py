@@ -541,7 +541,7 @@ class TestServer:
     @pytest.fixture
     def server(self):
         st = t_storage.InMemoryStatsStorage()
-        srv = t_ui.UIServer(port=0).attach(st)
+        srv = t_ui.UIServer(port=0, device="cpu").attach(st)
         yield srv, st
         srv.stop()
 
@@ -579,10 +579,16 @@ class TestServer:
         assert (code, body) == (200, {"ok": True, "n": 2})
         got = get_json(srv.port, "/api/tsne?sid=t")[1]
         assert got["coords"] == [[0, 1], [2, 3]]
+        # raw vectors are embedded server-side on the server's device (the
+        # reference's test_tsne_module_embeds_vectors case)
+        vecs = np.random.RandomState(0).randn(60, 8).tolist()
         code, body = post(srv.port, "/api/tsne", json.dumps(
-            {"sid": "v", "vectors": [[0.0, 1.0], [1.0, 0.0]]}).encode())
-        assert code == 400 and "plot" in body["error"]
-        assert st.list_session_ids() == ["t"]
+            {"sid": "v", "vectors": vecs, "iterations": 20,
+             "perplexity": 10}).encode())
+        assert (code, body) == (200, {"ok": True, "n": 60})
+        coords = np.asarray(get_json(srv.port, "/api/tsne?sid=v")[1]["coords"])
+        assert coords.shape == (60, 2) and np.all(np.isfinite(coords))
+        assert sorted(st.list_session_ids()) == ["t", "v"]
 
     def test_malformed_posts_rejected_not_fatal(self, server):
         srv, _ = server
