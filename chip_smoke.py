@@ -5,13 +5,14 @@
 Phases, in order; any failure propagates and the script exits non-zero:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: both kernel sources from deeplearning4j_tpu_torch/ops/csrc, one
-   nvcc each, all at once (a second run reuses the builds); each one's
-   build seconds, registers and spills (``-Xptxas -v``); the SASS of both
-   libraries (``cuobjdump -sass``): per kernel the counts of HGMMA
-   (wgmma), UTMALDG (TMA tile loads), UBLKCP (bulk copies) and LDGSTS
-   (cp.async) — a bf16 forward, dq or dk/dv instance without HGMMA or
-   UTMALDG fails the run;
+2. build: the kernel sources from deeplearning4j_tpu_torch/ops/csrc
+   (flash_fwd.cu, flash_bwd.cu, flash_bwd_f32.cu), one nvcc each, all at
+   once (a second run reuses the builds); each one's build seconds,
+   registers and spills (``-Xptxas -v``); the SASS of every library
+   (``cuobjdump -sass``): per kernel the counts of HGMMA (wgmma), UTMALDG
+   (TMA tile loads), UBLKCP (bulk copies) and LDGSTS (cp.async) — a bf16
+   forward, dq or dk/dv instance or an f32 (3xTF32) dq or dk/dv instance
+   without HGMMA or UTMALDG fails the run;
 3. forward kernel vs plain: the flash-attention forward kernel against its
    plain PyTorch version on the same inputs on the card, over head dims,
    dtypes, causal or not, masks (including fully masked rows) and lengths;
@@ -21,12 +22,16 @@ Phases, in order; any failure propagates and the script exits non-zero:
    only as a yardstick; the kernel is reported as a ratio of it); the same
    at d = 128 ([8, 2048, 6, 128], the same d_model);
 4. backward kernels vs plain: the Δ preprocess, dq and fused dk/dv kernels
-   against the plain backward over the same 48 cases (dq, dk, dv and Δ;
-   exact zeros for masked keys and rows with no key); then, at the flagship
-   shape, two launches of the backward must give bitwise equal dq, dk and
-   dv, and each kernel is timed beside the plain backward, its bound (and
-   its share of it), and the backward of scaled_dot_product_attention (a
-   yardstick only; dq + dk/dv is reported as a ratio of it);
+   (bf16, and the f32 instances with their pre-pass of tf32 splits, which
+   must equal its plain version bitwise) against the plain backward over
+   the same 48 cases (dq, dk, dv and Δ; exact zeros for masked keys and
+   rows with no key); then, at the flagship shape, in bf16 and in f32, two
+   launches of the backward must give bitwise equal dq, dk and dv, and
+   each kernel is timed beside the plain backward, its bound (and its
+   share of it; f32 with both the FFMA and the 3xTF32 bound), and the
+   backward of scaled_dot_product_attention on the same dtype (a yardstick
+   only; dq + dk/dv is reported as a ratio of it); the f32 forward
+   instance beside the forward of scaled_dot_product_attention in f32;
 5. forward main path: the flagship transformer LM (d_model 768, 12
    layers, 12 heads, d_ff 3072, V 32768, mixed_bf16) built and initialised
    by the port on the card, one forward over [8, 2048] ids through the
@@ -195,16 +200,19 @@ Phases, in order; any failure propagates and the script exits non-zero:
    wall with the listener and without, each endpoint's ms;
 15. distribution: the ring's per-hop entries on a virtual 4-rank ring at
    the flagship's attention shape [8, 2048, 12, 64] in f32, causal (each
-   kernel must launch 10 times: 4 diagonal and 6 pre-diagonal hops), its
-   out, lse, dq, dk and dv against the monolithic f32 kernels, unmasked
-   and with a ragged mask and a fully masked row (0 and -1e30), each
-   hop's kernel times beside the monolithic f32 and bf16 forward; then a
+   f32 kernel — the forward, Δ, the pre-pass and the 3xTF32 dq and dk/dv
+   — must launch 10 times: 4 diagonal and 6 pre-diagonal hops, and the
+   bf16 dq and dk/dv none), its out, lse, dq, dk and dv against the
+   monolithic f32 kernels, unmasked and with a ragged mask and a fully
+   masked row (0 and -1e30), each hop's times (the backward kernel by
+   kernel) beside its bounds, scaled_dot_product_attention on the hop's
+   f32 operands and the monolithic f32 and bf16 forward; then a
    one-rank NCCL group through parallel.initialize: sync and local-SGD
    (k = 2) ParallelWrapper on the flagship (12 layers) for 2 steps,
    bitwise equal to plain fit_batch; SequenceParallelGraphTrainer on it
    (the ring route's step-0 gradients no further from the plain-attention
-   route than the bf16-kernel route's, 2 timed steps in which each kernel
-   launches 24 times); the tensor-, pipeline- and expert-parallel graph
+   route than the bf16-kernel route's, 2 timed steps in which each f32
+   kernel launches 24 times); the tensor-, pipeline- and expert-parallel graph
    trainers at 2 layers (the MoE net 1), bitwise equal to the plain step;
    a two-host ElasticTrainer fleet on threads whose committed average is
    the averaging rule's;
@@ -359,11 +367,28 @@ from pathlib import Path  # noqa: E402
 SEED = 20261016
 DEV = torch.device("cuda")
 KERNELS = (fa.FLASH_FWD, fa.FLASH_BWD_PREPROCESS, fa.FLASH_BWD_DQ,
-           fa.FLASH_BWD_DKV)
+           fa.FLASH_BWD_DKV, fa.FLASH_BWD_SPLIT_F32, fa.FLASH_BWD_DQ_F32,
+           fa.FLASH_BWD_DKV_F32)
+# the kernels a bf16 attention step launches, and those an f32 one (the
+# ring's hops) launches
+BF16_KERNELS = KERNELS[:4]
+F32_KERNELS = (fa.FLASH_FWD, fa.FLASH_BWD_PREPROCESS, fa.FLASH_BWD_SPLIT_F32,
+               fa.FLASH_BWD_DQ_F32, fa.FLASH_BWD_DKV_F32)
 # H100 SXM published dense peaks (NVIDIA data sheet), at the 700 W limit
 PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
+PEAK_F32_FLOPS = 67e12      # FFMA on the CUDA cores
+PEAK_TF32_FLOPS = 495e12
+# an f32 product in 3xTF32 takes three tf32 products
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12
+
+
+def launched_as(launches, n, kernels):
+    """Did each of ``kernels`` launch ``n`` times and every other kernel
+    of ``launches`` ({name: count}) not at all?"""
+    names = {kn.name for kn in kernels}
+    return all(c == (n if name in names else 0)
+               for name, c in launches.items())
 
 # Kernel vs plain, on the same inputs on the card.
 # f32: both accumulate in f32 (TF32 off), only the summation order differs:
@@ -470,12 +495,17 @@ FLAGSHIP = {"V": 32768, "L": 12, "D": 768, "H": 12, "F": 3072, "T": 2048,
 # SASS opcodes counted per kernel: wgmma, TMA tile loads, bulk copies and
 # cp.async
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS")
-# the bf16 instances of the kernels, which must run on wgmma fed by TMA
+# the instances that must run on wgmma fed by TMA: the bf16 kernels and the
+# f32 (3xTF32) backward kernels
 WGMMA_KERNELS = {"flash_fwd": ("flash_fwd_bf16<64>", "flash_fwd_bf16<128>"),
                  "flash_bwd_dq": ("flash_bwd_dq_bf16<64>",
                                   "flash_bwd_dq_bf16<128>"),
                  "flash_bwd_dkv": ("flash_bwd_dkv_bf16<64,64>",
-                                   "flash_bwd_dkv_bf16<128,32>")}
+                                   "flash_bwd_dkv_bf16<128,32>"),
+                 "flash_bwd_dq_f32": ("flash_bwd_dq_f32<64>",
+                                      "flash_bwd_dq_f32<128>"),
+                 "flash_bwd_dkv_f32": ("flash_bwd_dkv_f32<64>",
+                                       "flash_bwd_dkv_f32<128>")}
 
 
 def kernel_label(mangled: str) -> str:
@@ -607,10 +637,11 @@ def make_mask(kind, b, t):
     return m
 
 
-def flash_bound(b, t, h, d, causal, mask, itemsize):
+def flash_bound(b, t, h, d, causal, mask, itemsize, f32_peak=PEAK_F32_FLOPS):
     """(bound_ms, bound_by): the least time for this call's work — each
     input read once, each output written once, and 4·d FLOPs per
-    attended (query, key) pair, counted from this call's mask."""
+    attended (query, key) pair, counted from this call's mask — at the
+    bf16 peak, or for f32 at ``f32_peak`` (FFMA's, or 3xTF32's)."""
     if mask is None:
         valid = torch.ones((b, t), device=DEV)
     else:
@@ -624,7 +655,7 @@ def flash_bound(b, t, h, d, causal, mask, itemsize):
     nbytes = 4 * b * t * h * d * itemsize + b * h * t * 4
     if mask is not None:
         nbytes += b * t * 4
-    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else f32_peak
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -692,12 +723,14 @@ def phase_kernel_vs_plain():
     print(f"kernel vs plain: {n_cases} cases passed")
 
 
-def fwd_timing(b, t, h, d):
-    """The bf16 forward kernel at [b, t, h, d] causal on strided qkv
-    slices: checked against the plain version, then timed beside it, the
-    bound and scaled_dot_product_attention on the same views."""
+def fwd_timing(b, t, h, d, dtype=torch.bfloat16):
+    """The forward kernel at [b, t, h, d] causal on strided qkv slices,
+    bf16 or f32: checked against the plain version, then timed beside it,
+    the bound and scaled_dot_product_attention on the same views. The f32
+    instance (FFMA on the CUDA cores) is held to the FFMA bound; the
+    3xTF32 bound is reported beside it."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
-    q, k, v = make_qkv(gen, b, t, h, d, torch.bfloat16)
+    q, k, v = make_qkv(gen, b, t, h, d, dtype)
     out, lse = fa.flash_attention_fwd(q, k, v, None, causal=True)
     ref, _ = fa.flash_attention_fwd_plain(q, k, v, None, causal=True)
     err, ratio = out_error(q, k, v, None, True, out, ref)
@@ -714,20 +747,27 @@ def fwd_timing(b, t, h, d):
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=True), 20)
-    bound_ms, bound_by = flash_bound(b, t, h, d, True, None, 2)
-    print(f"flash_fwd at [b={b}, t={t}, h={h}, d={d}] causal bf16: "
+    itemsize = q.element_size()
+    bound_ms, bound_by = flash_bound(b, t, h, d, True, None, itemsize)
+    extra = {}
+    if dtype == torch.float32:
+        extra["bound_3xtf32_ms"] = flash_bound(b, t, h, d, True, None, 4,
+                                               PEAK_3XTF32_FLOPS)[0]
+    print(f"flash_fwd at [b={b}, t={t}, h={h}, d={d}] causal "
+          f"{str(dtype)[6:]}: "
           f"kernel {ms:.4f} ms = {ms / library_ms:.3f}x sdpa "
           f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}; "
           f"{100 * bound_ms / ms:.1f}% of it); plain {plain_ms:.4f} ms; "
           f"max|dout| vs plain {err:.6g} ({ratio:.4g} of its bound); out and "
-          f"lse bitwise equal over two launches: {same}")
+          f"lse bitwise equal over two launches: {same}"
+          + "".join(f"; {k} {x:.4f}" for k, x in extra.items()))
     if not same:
         raise AssertionError("the forward kernel is not deterministic")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_share": bound_ms / ms, "library_ms": library_ms,
             "library_call": "scaled_dot_product_attention",
-            "over_sdpa": ms / library_ms}
+            "over_sdpa": ms / library_ms, **extra}
 
 
 def phase_flagship_kernel_timing(build):
@@ -1069,6 +1109,9 @@ def phase_bwd_kernel_vs_plain():
                                                        lse, dout,
                                                        causal=causal)
                         delta = fa._flash_bwd_preprocess_cuda(out, dout)
+                        split_equal = dtype != torch.float32 or torch.equal(
+                            fa._flash_bwd_split_cuda(q, k, v, dout),
+                            fa.flash_bwd_split_plain(q, k, v, dout))
                         ref = fa.flash_attention_bwd_plain(
                             q, k, v, mask, out, lse, dout, causal=causal)
                         e_delta = (delta - fa.flash_bwd_preprocess_plain(
@@ -1078,11 +1121,12 @@ def phase_bwd_kernel_vs_plain():
                         case = (f"t={t} d={d} {str(dtype)[6:]} "
                                 f"causal={causal} mask={mkind}")
                         if not (max(r for _, r in errs) <= 1.0
-                                and e_delta <= TOL_DELTA):
+                                and e_delta <= TOL_DELTA and split_equal):
                             raise AssertionError(
                                 f"backward kernels disagree with plain: "
                                 f"{case}: (max|d|, share of bound) dq/dk/dv "
-                                f"{errs}, max|dDelta|={e_delta:.3g}")
+                                f"{errs}, max|dDelta|={e_delta:.3g}, f32 "
+                                f"splits bitwise the plain's: {split_equal}")
                         check_grad_zeros(mask, causal, grads, case)
                         w = worst.setdefault(str(dtype)[6:], [0.0] * 7)
                         for i, (e, r) in enumerate(errs):
@@ -1100,17 +1144,20 @@ def phase_bwd_kernel_vs_plain():
               f"({w[3]:.4g}), dv {w[4]:.6g} ({w[5]:.4g}); max|dDelta| "
               f"{w[6]:.6g} (tolerance {TOL_DELTA})")
     print(f"backward kernels vs plain: {n_cases} cases passed, masked keys "
-          "and rows with no key exact zeros")
+          "and rows with no key exact zeros, the f32 pre-pass's splits "
+          "bitwise equal to flash_bwd_split_plain")
 
 
-def bwd_bounds(b, t, h, d, itemsize, causal=True):
+def bwd_bounds(b, t, h, d, itemsize, causal=True, f32_peak=PEAK_F32_FLOPS):
     """(bound_ms, bound_by) per backward kernel at an unmasked call:
     bytes with each input read once and each output written once; FLOPs
     6·d per attended (query, key) pair for dq (S, dP, dS·K), 8·d for dk/dv
-    (S, dP, dSᵀ·Q, Pᵀ·dO), over the bf16 or f32 peak of the operands,
-    2·d per row for Δ (f32 on the CUDA cores)."""
+    (S, dP, dSᵀ·Q, Pᵀ·dO), over the bf16 peak or for f32 ``f32_peak``
+    (FFMA's 67 TFLOP/s, or 3xTF32's 165), 2·d per row for Δ (f32 on the
+    CUDA cores). For f32 also the pre-pass of tf32 splits: 4 tensors read,
+    their 14 planes written, 2 roundings a value."""
     pairs = b * h * t * ((t + 1) / 2 if causal else t)
-    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else f32_peak
     x = b * t * h * d * itemsize          # one [b, t, h, d] tensor
     row = b * h * t * 4                   # one [b, h, t] f32 tensor
     work = {"flash_bwd_preprocess": (2 * d * b * t * h / PEAK_F32_FLOPS,
@@ -1118,6 +1165,10 @@ def bwd_bounds(b, t, h, d, itemsize, causal=True):
             "flash_bwd_dq": (6 * d * pairs / peak, 4 * x + 2 * row + x),
             "flash_bwd_dkv": (8 * d * pairs / peak,
                               4 * x + 2 * row + 2 * x)}
+    if itemsize == 4:
+        work["flash_bwd_split_f32"] = (
+            2 * 4 * b * t * h * d / PEAK_F32_FLOPS,
+            4 * x + 2 * fa.SPLIT_TENSORS * x)
     res = {}
     for name, (t_ops, nbytes) in work.items():
         t_ops, t_bytes = t_ops * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -1145,13 +1196,21 @@ def preprocess_entry(out, dout):
     return launch
 
 
-def phase_bwd_timing(build):
+def bwd_timing(dtype, build):
+    """The backward kernels at the flagship's attention shape, causal, in
+    ``dtype``: checked against the plain backward, two launches bitwise
+    equal, then each kernel timed beside the plain backward, its bound and
+    the backward of scaled_dot_product_attention on the same dtype. f32
+    runs the pre-pass of tf32 splits (bitwise its plain version) and the
+    3xTF32 kernels, held to the 3xTF32 bound with the FFMA one beside it.
+    Returns {kernel name (``_f32`` for the f32 instances): readings}."""
     b, t, h = (FLAGSHIP[k] for k in "BTH")
     d = FLAGSHIP["D"] // h
+    f32 = dtype == torch.float32
+    sfx = "_f32" if f32 else ""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
-    q, k, v = make_qkv(gen, b, t, h, d, torch.bfloat16)
-    dout = torch.randn((b, t, h, d), generator=gen, device=DEV).bfloat16()
-    before = [kn.launches for kn in KERNELS]
+    q, k, v = make_qkv(gen, b, t, h, d, dtype)
+    dout = torch.randn((b, t, h, d), generator=gen, device=DEV).to(dtype)
     out, lse = fa.flash_attention_fwd(q, k, v, None, causal=True)
     grads = fa.flash_attention_bwd(q, k, v, None, out, lse, dout, causal=True)
     delta = fa._flash_bwd_preprocess_cuda(out, dout)
@@ -1166,17 +1225,20 @@ def phase_bwd_timing(build):
     # same inputs must give the same bits
     again = fa.flash_attention_bwd(q, k, v, None, out, lse, dout, causal=True)
     same = [torch.equal(x, y) for x, y in zip(grads, again)]
-    print(f"flash backward determinism at [b={b}, t={t}, h={h}, d={d}]: "
-          f"dq/dk/dv bitwise equal over two launches: {same}")
+    print(f"flash backward determinism at [b={b}, t={t}, h={h}, d={d}] "
+          f"{str(dtype)[6:]}: dq/dk/dv bitwise equal over two launches: "
+          f"{same}")
     if not all(same):
         raise AssertionError("the backward kernels are not deterministic")
-    del again
+    del again, ref
     scale = 1.0 / d ** 0.5
-    ms = {"flash_bwd_preprocess": cuda_ms(preprocess_entry(out, dout), 100),
-          "flash_bwd_dq": cuda_ms(lambda: fa._flash_bwd_dq_cuda(
-              q, k, v, None, lse, delta, dout, True, scale), 20),
-          "flash_bwd_dkv": cuda_ms(lambda: fa._flash_bwd_dkv_cuda(
-              q, k, v, None, lse, delta, dout, True, scale), 20)}
+    split = fa._flash_bwd_split_cuda(q, k, v, dout) if f32 else None
+    ms = {"flash_bwd_preprocess" + sfx: cuda_ms(preprocess_entry(out, dout),
+                                                100),
+          "flash_bwd_dq" + sfx: cuda_ms(lambda: fa._flash_bwd_dq_cuda(
+              q, k, v, None, lse, delta, dout, True, scale, split), 20),
+          "flash_bwd_dkv" + sfx: cuda_ms(lambda: fa._flash_bwd_dkv_cuda(
+              q, k, v, None, lse, delta, dout, True, scale, split), 20)}
     plain_delta_ms = cuda_ms(lambda: fa.flash_bwd_preprocess_plain(out, dout),
                              20)
     plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
@@ -1189,39 +1251,77 @@ def phase_bwd_timing(build):
     doh = dout.transpose(1, 2)
     sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
         oh, (qh, kh, vh), doh, retain_graph=True), 20)
-    for kn, n in zip(KERNELS, before):   # timing launches do not count
-        kn.launches = n
-    bounds = bwd_bounds(b, t, h, d, 2)
-    ratio = (ms["flash_bwd_dq"] + ms["flash_bwd_dkv"]) / sdpa_bwd_ms
-    res = {}
-    for name, err, plain, lib in (
-            ("flash_bwd_preprocess", e_delta, plain_delta_ms, vecdot_ms),
+    del oh, qh, kh, vh
+    bounds = bwd_bounds(b, t, h, d, q.element_size(), True,
+                        PEAK_3XTF32_FLOPS)
+    ffma = bwd_bounds(b, t, h, d, q.element_size())
+    # (kernel, its entry in bwd_bounds, max|d|, plain ms, library ms)
+    rows = [("flash_bwd_preprocess", e_delta, plain_delta_ms, vecdot_ms),
             ("flash_bwd_dq", errs[0][0], plain_ms, None),
-            ("flash_bwd_dkv", max(errs[1][0], errs[2][0]), plain_ms, None)):
+            ("flash_bwd_dkv", max(errs[1][0], errs[2][0]), plain_ms, None)]
+    rows = [(base + sfx, base, *rest) for base, *rest in rows]
+    if f32:
+        split_err = (split - fa.flash_bwd_split_plain(q, k, v, dout)
+                     ).abs().max().item()
+        if split_err != 0.0:
+            raise AssertionError(f"the f32 pre-pass is off its plain "
+                                 f"version by {split_err}")
+        ms["flash_bwd_split_f32"] = cuda_ms(
+            lambda: fa._flash_bwd_split_cuda(q, k, v, dout), 20)
+        rows.append(("flash_bwd_split_f32", "flash_bwd_split_f32", split_err,
+                     cuda_ms(lambda: fa.flash_bwd_split_plain(q, k, v, dout),
+                             3, warmup=1), None))
+    pair = ms["flash_bwd_dq" + sfx] + ms["flash_bwd_dkv" + sfx]
+    ratio = pair / sdpa_bwd_ms
+    res = {}
+    for name, work, err, plain, lib in rows:
+        bound, by = bounds[work]
         res[name] = {"max_abs_err": err, "ms": ms[name], "plain_ms": plain,
-                     "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-                     "bound_share": bounds[name][0] / ms[name],
-                     "library_ms": lib}
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        labels = WGMMA_KERNELS[name]
-        res[name]["plain_computes"] = "dq, dk and dv"
-        res[name]["sdpa_backward_ms"] = sdpa_bwd_ms
-        res[name]["dq_plus_dkv_over_sdpa_backward"] = ratio
-        res[name]["instances"] = {label: build.get(label, {})
-                                  for label in labels}
-    res["flash_bwd_preprocess"]["library_call"] = "torch.linalg.vecdot"
+                     "bound_ms": bound, "bound_by": by,
+                     "bound_share": bound / ms[name], "library_ms": lib}
+        if f32:
+            res[name]["bound_ffma_ms"] = ffma[work][0]
+    for base in ("flash_bwd_dq", "flash_bwd_dkv"):
+        r = res[base + sfx]
+        r["plain_computes"] = "dq, dk and dv"
+        r["sdpa_backward_ms"] = sdpa_bwd_ms
+        r["dq_plus_dkv_over_sdpa_backward"] = ratio
+        r["instances"] = {label: build.get(label, {})
+                          for label in WGMMA_KERNELS[base + sfx]}
+        if f32:
+            r["bound_3xtf32_ms"] = r["bound_ms"]
+    res["flash_bwd_preprocess" + sfx]["library_call"] = "torch.linalg.vecdot"
     total = sum(ms.values())
-    print(f"flash backward at [b={b}, t={t}, h={h}, d={d}] causal bf16: "
-          + "; ".join(f"{n} {ms[n]:.4f} ms (bound {bounds[n][0]:.4f} ms, "
-                      f"{bounds[n][1]}; {100 * bounds[n][0] / ms[n]:.1f}% "
-                      "of it)" for n in ms)
-          + f"; dq + dk/dv {ms['flash_bwd_dq'] + ms['flash_bwd_dkv']:.4f} ms "
-          f"= {ratio:.3f}x the backward of scaled_dot_product_attention "
-          f"({sdpa_bwd_ms:.4f} ms); the three {total:.4f} ms; plain backward "
-          f"{plain_ms:.4f} ms, plain Delta {plain_delta_ms:.4f} ms, vecdot "
-          f"{vecdot_ms:.4f} ms; max|d| vs plain dq/dk/dv "
+    print(f"flash backward at [b={b}, t={t}, h={h}, d={d}] causal "
+          f"{str(dtype)[6:]}: "
+          + "; ".join(f"{n} {ms[n]:.4f} ms (bound {res[n]['bound_ms']:.4f} "
+                      f"ms, {res[n]['bound_by']}; "
+                      f"{100 * res[n]['bound_share']:.1f}% of it"
+                      + (f"; FFMA bound {res[n]['bound_ffma_ms']:.4f} ms"
+                         if f32 else "") + ")" for n in ms)
+          + f"; dq + dk/dv {pair:.4f} ms = {ratio:.3f}x the backward of "
+          f"scaled_dot_product_attention ({sdpa_bwd_ms:.4f} ms); all "
+          f"{total:.4f} ms; plain backward {plain_ms:.4f} ms, plain Delta "
+          f"{plain_delta_ms:.4f} ms, vecdot {vecdot_ms:.4f} ms; max|d| vs "
+          "plain dq/dk/dv "
           + ", ".join(f"{e:.6g} ({r:.4g} of its bound)" for e, r in errs)
           + f", Delta {e_delta:.6g}")
+    return res
+
+
+def phase_bwd_timing(build):
+    """The backward kernels timed in bf16 and in f32 (the ring's and every
+    f32 call's instances), and the f32 forward instance beside the
+    forward of scaled_dot_product_attention in f32. Timing and check
+    launches do not count."""
+    before = [kn.launches for kn in KERNELS]
+    res = bwd_timing(torch.bfloat16, build)
+    res.update(bwd_timing(torch.float32, build))
+    b, t, h = (FLAGSHIP[k] for k in "BTH")
+    res["flash_fwd_f32"] = fwd_timing(b, t, h, FLAGSHIP["D"] // h,
+                                      torch.float32)
+    for kn, n in zip(KERNELS, before):
+        kn.launches = n
     return res
 
 
@@ -1326,9 +1426,9 @@ def phase_training(net):
     loss0 = float(loss0)
     print(f"training main path: one fit_batch, loss {loss0:.6g}, launches "
           f"{launches}")
-    if any(n != L for n in launches.values()):
+    if not launched_as(launches, L, BF16_KERNELS):
         raise AssertionError(f"a training step launched {launches}, "
-                             f"expected each kernel {L} times")
+                             f"expected each bf16 kernel {L} times")
     if not np.isfinite(loss0):
         raise AssertionError("non-finite training loss")
 
@@ -1757,7 +1857,7 @@ def mln_attention_route():
           f"output (max, rms) ({fwd[0]:.4g}, {fwd[1]:.4g}) bound "
           f"{ROUTE_TOL['dense']}, step-0 gradients ({grd[0]:.4g}, "
           f"{grd[1]:.4g}) bound {GRAD_ROUTE_TOL['plain']}")
-    if any(n != 1 for n in launches.values()):
+    if not launched_as(launches, 1, BF16_KERNELS):
         raise AssertionError(f"MLN attention step launched {launches}")
     if not (fwd[0] <= ROUTE_TOL["dense"]["max"]
             and fwd[1] <= ROUTE_TOL["dense"]["rms"]
@@ -2178,7 +2278,7 @@ def phase_moe():
         torch.cuda.synchronize()
     peak_step = torch.cuda.max_memory_allocated()
     launches["training"] = {kn.name: kn.launches for kn in KERNELS}
-    if any(v != L for v in launches["training"].values()):
+    if not launched_as(launches["training"], L, BF16_KERNELS):
         raise AssertionError(f"a moe training step launched "
                              f"{launches['training']}")
     loss0 = float(loss0)
@@ -3902,7 +4002,7 @@ def phase_health():
         print(f"health: step with stats {'on' if stats else 'off'}: wall "
               f"{[round(w * 1e3, 3) for w in walls[stats]]} ms, device "
               f"{ms} ms in {kernels} kernels from {host} host launch calls")
-    if any(n != L for n in launches.values()):
+    if not launched_as(launches, L, BF16_KERNELS):
         raise AssertionError(f"the stats step launched {launches}")
     if not (norm_err <= 1e-5 and counts_equal and hists_equal):
         raise AssertionError("health stats disagree with the plain "
@@ -4353,9 +4453,9 @@ def phase_substrate():
         print(f"substrate run A: {steps} steps in {wall_a:.3f} s, launches "
               f"{launches}, host syncs {syncs:g} ({syncs / steps:g} per "
               f"step), losses {np.array2string(np.asarray(losses_a), precision=6)}")
-        if any(n != steps * L for n in launches.values()):
+        if not launched_as(launches, steps * L, BF16_KERNELS):
             raise AssertionError(f"run A launched {launches}, expected each "
-                                 f"kernel {steps * L} times")
+                                 f"bf16 kernel {steps * L} times")
         if syncs != 0:
             raise AssertionError("a silent listener's fit made host syncs")
         if not np.isfinite(losses_a).all() or net.iteration_count != steps:
@@ -4700,11 +4800,15 @@ def ring_case(gen, mask_kind):
 
 def ring_timing(q, k, v, g):
     """Per-hop and summed kernel times of the virtual ring beside the
-    monolithic f32 and bf16 kernels, with the bounds of a hop."""
+    monolithic f32 and bf16 kernels, with the bounds of a hop (f32: the
+    FFMA bound of the forward, the 3xTF32 bounds of dq and dk/dv) and
+    scaled_dot_product_attention on the hop's f32 operands (its forward,
+    and its backward through torch.autograd.grad)."""
     b, t, h, d, n = (RING[k] for k in ("B", "T", "H", "D", "ranks"))
     tl = t // n
     s = d ** -0.5
     qh, kh, vh, gh = (x[:, :tl].contiguous() for x in (q, k, v, g))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     res = {}
     for causal, kind in ((False, "full"), (True, "diag")):
         out, lse = fa._flash_fwd_cuda(qh, kh, vh, None, causal, s)
@@ -4713,14 +4817,37 @@ def ring_timing(q, k, v, g):
         res[f"hop_bwd_{kind}_ms"] = cuda_ms(
             lambda: fa._flash_bwd_cuda(qh, kh, vh, None, out, lse, gh,
                                        causal, s), 20)
+        # the backward's kernels one by one
+        delta = fa._flash_bwd_preprocess_cuda(out, gh)
+        split = fa._flash_bwd_split_cuda(qh, kh, vh, gh)
+        for name, fn in (
+                ("preprocess", preprocess_entry(out, gh)),
+                ("split", lambda: fa._flash_bwd_split_cuda(qh, kh, vh, gh)),
+                ("dq", lambda: fa._flash_bwd_dq_cuda(
+                    qh, kh, vh, None, lse, delta, gh, causal, s, split)),
+                ("dkv", lambda: fa._flash_bwd_dkv_cuda(
+                    qh, kh, vh, None, lse, delta, gh, causal, s, split))):
+            res[f"hop_{name}_{kind}_ms"] = cuda_ms(fn, 20)
         bound, by = flash_bound(b, tl, h, d, causal, None, 4)
         res[f"hop_fwd_{kind}_bound_ms"], res[f"hop_fwd_{kind}_bound_by"] = \
             bound, by
-        # the hop's backward runs Δ, dq and dk/dv back to back: the sum of
-        # their bounds
-        bwd = bwd_bounds(b, tl, h, d, 4, causal)
+        res[f"hop_fwd_{kind}_bound_3xtf32_ms"] = flash_bound(
+            b, tl, h, d, causal, None, 4, PEAK_3XTF32_FLOPS)[0]
+        # the hop's backward runs Δ, the pre-pass, dq and dk/dv back to
+        # back: the sum of their bounds
+        bwd = bwd_bounds(b, tl, h, d, 4, causal, PEAK_3XTF32_FLOPS)
         res[f"hop_bwd_{kind}_bound_ms"] = sum(v[0] for v in bwd.values())
         res[f"hop_bwd_{kind}_bound_by"] = {k: v[1] for k, v in bwd.items()}
+        res[f"hop_bwd_{kind}_bound_ffma_ms"] = sum(
+            v[0] for v in bwd_bounds(b, tl, h, d, 4, causal).values())
+        qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (qh, kh, vh))
+        res[f"hop_sdpa_fwd_{kind}_ms"] = cuda_ms(
+            lambda: sdpa(qs, ks, vs, is_causal=causal), 20)
+        os_ = sdpa(qs, ks, vs, is_causal=causal)
+        res[f"hop_sdpa_bwd_{kind}_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            os_, (qs, ks, vs), gh.transpose(1, 2), retain_graph=True), 20)
+        del os_, qs, ks, vs, split
     full, diag = n * (n - 1) // 2, n
     res["hops_fwd_sum_ms"] = (full * res["hop_fwd_full_ms"]
                               + diag * res["hop_fwd_diag_ms"])
@@ -4887,9 +5014,9 @@ def phase_distribution():
                   f": max|d| " + ", ".join(f"{k} {x:.3g}"
                                            for k, x in e.items()))
         print(f"virtual ring launches {launches}")
-        if any(c != want for c in launches.values()):
+        if not launched_as(launches, want, F32_KERNELS):
             raise AssertionError(f"virtual ring launched {launches}, "
-                                 f"expected each kernel {want} times")
+                                 f"expected each f32 kernel {want} times")
         for ref in ("kernel", "plain"):
             if over(errs[ref], RING_TOL):
                 raise AssertionError(f"virtual ring off the {ref} version: "
@@ -4901,6 +5028,7 @@ def phase_distribution():
                                  f"bound: {errs['fault']}")
         report[f"ring_{mask_kind}_err"] = errs
         if mask_kind == "none":
+            report["virtual_ring_launches"] = launches
             report["ring_times"] = ring_timing(*ops[:4])
         del ops
     print("virtual ring times (ms): " + ", ".join(
@@ -4996,9 +5124,9 @@ def distribution_training():
           f"plain step's (bf16 kernels) {ref_losses}; launches "
           f"{ring_launches}; step wall/device ms "
           + ", ".join(f"{w:.2f}/{d:.2f}" for w, d in times))
-    if any(c != 2 * L for c in ring_launches.values()):
+    if not launched_as(ring_launches, 2 * L, F32_KERNELS):
         raise AssertionError(f"the ring route launched {ring_launches}, "
-                             f"expected each kernel {2 * L} times")
+                             f"expected each f32 kernel {2 * L} times")
     if not (same and same_losses == sp_losses):
         raise AssertionError(f"the sequence-parallel trainer differs from "
                              f"plain fit_batch in the ring's precision: "
@@ -5415,7 +5543,7 @@ def phase_dashboard(tmp, flagship):
         if n_sync != windows or len(ups) != windows or not proj_equal:
             raise AssertionError("the listener's device path broke its "
                                  "one-sync-per-window contract")
-        if any(n != FLAGSHIP["L"] * steps for n in launches.values()):
+        if not launched_as(launches, FLAGSHIP["L"] * steps, BF16_KERNELS):
             raise AssertionError(f"the dashboard steps launched {launches}")
 
         ms, bodies = {}, {}
@@ -6650,22 +6778,59 @@ def main():
                 "tpu_kernels": ["_bwd_dkv_kernel"],
                 "launches": train_launches["flash_bwd_dkv"],
                 **bwd_timing["flash_bwd_dkv"]}]
+    # the f32 instances: their main path is the sequence-parallel step, the
+    # ring of f32 hops (launches over its 2 counted steps); the forward and
+    # Δ instances share their entry's launch counter with the bf16 ones
+    ring = distribution["ring_launches"]
+    kernels += [
+        {"name": "flash_fwd_f32", "counter": "flash_fwd", "route": "cuda",
+         "source": src + "flash_fwd.cu", "replaces": ref + "91",
+         "replaces_also": ref + "124", "instance": "flash_fwd_f32<64>",
+         "tpu_kernels": ["_fwd_kernel_vmem", "_fwd_kernel_stream"],
+         "launches": ring["flash_fwd"], **bwd_timing["flash_fwd_f32"]},
+        {"name": "flash_bwd_preprocess_f32",
+         "counter": "flash_bwd_preprocess", "route": "cuda",
+         "source": src + "flash_bwd.cu", "replaces": ref + "442",
+         "replaces_note": "an XLA pass of _flash_bwd_btd_pallas, not a "
+                          "Pallas kernel",
+         "launches": ring["flash_bwd_preprocess"],
+         **bwd_timing["flash_bwd_preprocess_f32"]},
+        {"name": "flash_bwd_split_f32", "route": "cuda",
+         "source": src + "flash_bwd_f32.cu", "replaces": ref + "359",
+         "replaces_also": ref + "391",
+         "replaces_note": "the pre-pass of the f32 dq and dk/dv kernels "
+                          "(tf32 splits, transposed copies); no TPU kernel "
+                          "of its own",
+         "launches": ring["flash_bwd_split_f32"],
+         **bwd_timing["flash_bwd_split_f32"]},
+        {"name": "flash_bwd_dq_f32", "route": "cuda",
+         "source": src + "flash_bwd_f32.cu", "replaces": ref + "359",
+         "tpu_kernels": ["_bwd_dq_kernel"],
+         "launches": ring["flash_bwd_dq_f32"],
+         **bwd_timing["flash_bwd_dq_f32"]},
+        {"name": "flash_bwd_dkv_f32", "route": "cuda",
+         "source": src + "flash_bwd_f32.cu", "replaces": ref + "391",
+         "tpu_kernels": ["_bwd_dkv_kernel"],
+         "launches": ring["flash_bwd_dkv_f32"],
+         **bwd_timing["flash_bwd_dkv_f32"]}]
     for k in kernels:
+        c = k.get("counter", k["name"])
         k["launches_by_path"] = {
-            "forward": fwd_launches if k["name"] == "flash_fwd" else 0,
-            "training": train_launches[k["name"]],
-            "fleet": fleet_launches["fleet"][k["name"]],
-            "health": fleet_launches["health"][k["name"]],
-            "classic": classic_launches[k["name"]],
-            "moe": moe_launches["training"][k["name"]],
-            "moe_forward": moe_launches["forward"][k["name"]],
-            "moe_remat": moe_launches["remat"][k["name"]],
-            "substrate": substrate_launches[k["name"]],
-            "ring": distribution["ring_launches"][k["name"]],
-            "dashboard": dashboard_launches[k["name"]],
-            "embeddings": embedding_launches[k["name"]],
-            "analysis": analysis_launches[k["name"]],
-            "examples": example_launches[k["name"]]}
+            "forward": fwd_launches if c == "flash_fwd" else 0,
+            "training": train_launches[c],
+            "fleet": fleet_launches["fleet"][c],
+            "health": fleet_launches["health"][c],
+            "classic": classic_launches[c],
+            "moe": moe_launches["training"][c],
+            "moe_forward": moe_launches["forward"][c],
+            "moe_remat": moe_launches["remat"][c],
+            "substrate": substrate_launches[c],
+            "ring": ring[c],
+            "virtual_ring": distribution["virtual_ring_launches"][c],
+            "dashboard": dashboard_launches[c],
+            "embeddings": embedding_launches[c],
+            "analysis": analysis_launches[c],
+            "examples": example_launches[c]}
     total = f"script {time.perf_counter() - T_START:.3f} s"
     print(total)
     print(f"chip_smoke: {total}", file=sys.stderr, flush=True)

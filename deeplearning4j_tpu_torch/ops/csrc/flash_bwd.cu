@@ -5,10 +5,10 @@
 //                         (d = 64 or 128). Replaces the XLA pass of the JAX
 //                         package's _flash_bwd_btd_pallas (deeplearning4j_tpu/
 //                         ops/flash_attention.py:442; not a Pallas kernel).
-//   flash_bwd_dq          dq = sum_k dS K. Replaces the Pallas kernel
+//   flash_bwd_dq          dq = sum_k dS K, bf16. Replaces the Pallas kernel
 //                         _bwd_dq_kernel (flash_attention.py:359, tile math
 //                         _bwd_p_ds :336, driver _flash_bwd_btd_pallas :430).
-//   flash_bwd_dkv         dk = sum_q dS^T Q and dv = sum_q P^T dO, fused.
+//   flash_bwd_dkv         dk = sum_q dS^T Q and dv = sum_q P^T dO, fused, bf16.
 //                         Replaces the Pallas kernel _bwd_dkv_kernel (:391).
 //
 // Both gradient kernels recompute P from the forward's saved lse:
@@ -82,9 +82,11 @@
 //   * Epilogue: each warpgroup stages its gradient tile in bf16 in the
 //     shared memory of its own (finished) K/V or Q/dO rows, swizzled, and
 //     writes it out with 16-byte stores.
-//   * f32: one thread per row on the CUDA cores (fp32 FMA, no TF32), so the
-//     f32 gradients keep full f32 precision. They serve the card tests, not
-//     the main path.
+//
+// The f32 dq and dk/dv kernels are in flash_bwd_f32.cu (3xTF32 wgmma fed by
+// TMA), a library of its own so that it compiles beside this one. They
+// serve every f32 attention call on the card and every hop of the ring;
+// they take the Delta this file's preprocess writes.
 
 #include "hopper.cuh"
 
@@ -602,193 +604,8 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA-core kernels, one thread per row
-// ---------------------------------------------------------------------------
-
-constexpr int R32 = 64;   // rows (threads) per block: queries (dq), keys (dk/dv)
-constexpr int C32 = 32;   // keys (dq) or queries (dk/dv) per loop step
-
-template <int D>
-__global__ void __launch_bounds__(R32)
-flash_bwd_dq_f32_kernel(BwdParams p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);   // [R32][D + 1]
-  float* dOs = Qs + R32 * (D + 1);                  // [R32][D + 1]
-  float* Ks = dOs + R32 * (D + 1);                  // [C32][D]
-  float* Vs = Ks + C32 * D;                         // [C32][D]
-
-  const int n_qt = p.t / R32;
-  const int qt = p.causal ? (n_qt - 1 - (int)blockIdx.y) : (int)blockIdx.y;
-  const int bh = blockIdx.x;
-  const int bi = bh / p.h;
-  const int hi = bh % p.h;
-  const int q0 = qt * R32;
-  const int tid = threadIdx.x;
-  const int row = q0 + tid;
-
-  const float* qg = static_cast<const float*>(p.q) + bi * p.q_sb + hi * p.q_sh;
-  const float* kg = static_cast<const float*>(p.k) + bi * p.k_sb + hi * p.k_sh;
-  const float* vg = static_cast<const float*>(p.v) + bi * p.v_sb + hi * p.v_sh;
-  const float* dog =
-      static_cast<const float*>(p.dout) + bi * p.o_sb + hi * p.o_sh;
-  const float* mg = p.mask ? p.mask + (long long)bi * p.t : nullptr;
-
-  for (int c = tid; c < R32 * D; c += R32) {
-    const int r = c / D, cc = c % D;
-    Qs[r * (D + 1) + cc] = qg[(long long)(q0 + r) * p.q_st + cc];
-    dOs[r * (D + 1) + cc] = dog[(long long)(q0 + r) * p.o_st + cc];
-  }
-  const float lse = p.lse[(long long)bh * p.t + row];
-  const float dl = p.delta[(long long)bh * p.t + row];
-  const bool live = !(lse <= HALF_NEG);
-
-  float acc[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) acc[i] = 0.f;
-
-  const int n_kt = p.causal ? (q0 + R32 + C32 - 1) / C32 : p.t / C32;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * C32;
-    __syncthreads();
-    for (int c = tid; c < C32 * D; c += R32) {
-      const int r = c / D, cc = c % D;
-      Ks[c] = kg[(long long)(k0 + r) * p.k_st + cc];
-      Vs[c] = vg[(long long)(k0 + r) * p.v_st + cc];
-    }
-    __syncthreads();
-
-    float ds[C32];
-#pragma unroll
-    for (int j = 0; j < C32; ++j) {
-      float sa = 0.f, pa = 0.f;
-#pragma unroll 16
-      for (int i = 0; i < D; ++i) {
-        sa = fmaf(Qs[tid * (D + 1) + i], Ks[j * D + i], sa);
-        pa = fmaf(dOs[tid * (D + 1) + i], Vs[j * D + i], pa);
-      }
-      const int col = k0 + j;
-      const bool ok = live && (mg == nullptr || mg[col] > 0.f) &&
-                      !(p.causal && col > row);
-      const float pv = ok ? expf(sa * p.scale - lse) : 0.f;
-      ds[j] = pv * (pa - dl) * p.scale;
-    }
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      float a = acc[i];
-#pragma unroll
-      for (int j = 0; j < C32; ++j) a = fmaf(ds[j], Ks[j * D + i], a);
-      acc[i] = a;
-    }
-  }
-
-  float* r = static_cast<float*>(p.g0) + (((long long)bi * p.t + row) * p.h + hi) * D;
-#pragma unroll
-  for (int i = 0; i < D; ++i) r[i] = acc[i];
-}
-
-template <int D>
-__global__ void __launch_bounds__(R32)
-flash_bwd_dkv_f32_kernel(BwdParams p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Ks = reinterpret_cast<float*>(smem_raw);   // [R32][D + 1]
-  float* Vs = Ks + R32 * (D + 1);                   // [R32][D + 1]
-  float* dKa = Vs + R32 * (D + 1);                  // [R32][D + 1] dk sums
-  float* dVa = dKa + R32 * (D + 1);                 // [R32][D + 1] dv sums
-  float* Qs = dVa + R32 * (D + 1);                  // [C32][D]
-  float* dOs = Qs + C32 * D;                        // [C32][D]
-  float* lse_s = dOs + C32 * D;                     // [C32]
-  float* dl_s = lse_s + C32;                        // [C32]
-
-  const int k0 = (int)blockIdx.y * R32;
-  const int bh = blockIdx.x;
-  const int bi = bh / p.h;
-  const int hi = bh % p.h;
-  const int tid = threadIdx.x;
-  const int key = k0 + tid;
-
-  const float* qg = static_cast<const float*>(p.q) + bi * p.q_sb + hi * p.q_sh;
-  const float* kg = static_cast<const float*>(p.k) + bi * p.k_sb + hi * p.k_sh;
-  const float* vg = static_cast<const float*>(p.v) + bi * p.v_sb + hi * p.v_sh;
-  const float* dog =
-      static_cast<const float*>(p.dout) + bi * p.o_sb + hi * p.o_sh;
-  const float* lg = p.lse + (long long)bh * p.t;
-  const float* dg = p.delta + (long long)bh * p.t;
-
-  for (int c = tid; c < R32 * D; c += R32) {
-    const int r = c / D, cc = c % D;
-    Ks[r * (D + 1) + cc] = kg[(long long)(k0 + r) * p.k_st + cc];
-    Vs[r * (D + 1) + cc] = vg[(long long)(k0 + r) * p.v_st + cc];
-    dKa[r * (D + 1) + cc] = 0.f;
-    dVa[r * (D + 1) + cc] = 0.f;
-  }
-  const bool key_ok =
-      p.mask == nullptr || p.mask[(long long)bi * p.t + key] > 0.f;
-
-  for (int q0 = p.causal ? k0 : 0; q0 < p.t; q0 += C32) {
-    __syncthreads();
-    for (int c = tid; c < C32 * D; c += R32) {
-      const int r = c / D, cc = c % D;
-      Qs[c] = qg[(long long)(q0 + r) * p.q_st + cc];
-      dOs[c] = dog[(long long)(q0 + r) * p.o_st + cc];
-    }
-    if (tid < C32) {
-      lse_s[tid] = lg[q0 + tid];
-      dl_s[tid] = dg[q0 + tid];
-    }
-    __syncthreads();
-
-    float pr[C32], ds[C32];
-#pragma unroll
-    for (int j = 0; j < C32; ++j) {
-      float sa = 0.f, pa = 0.f;
-#pragma unroll 16
-      for (int i = 0; i < D; ++i) {
-        sa = fmaf(Ks[tid * (D + 1) + i], Qs[j * D + i], sa);
-        pa = fmaf(Vs[tid * (D + 1) + i], dOs[j * D + i], pa);
-      }
-      const float l = lse_s[j];
-      const bool ok = key_ok && !(l <= HALF_NEG) &&
-                      !(p.causal && key > q0 + j);
-      const float pv = ok ? expf(sa * p.scale - l) : 0.f;
-      pr[j] = pv;
-      ds[j] = pv * (pa - dl_s[j]) * p.scale;
-    }
-    for (int i = 0; i < D; ++i) {
-      float av = dVa[tid * (D + 1) + i], ak = dKa[tid * (D + 1) + i];
-#pragma unroll
-      for (int j = 0; j < C32; ++j) {
-        av = fmaf(pr[j], dOs[j * D + i], av);
-        ak = fmaf(ds[j], Qs[j * D + i], ak);
-      }
-      dVa[tid * (D + 1) + i] = av;
-      dKa[tid * (D + 1) + i] = ak;
-    }
-  }
-
-  const long long off = (((long long)bi * p.t + key) * p.h + hi) * D;
-  float* dkr = static_cast<float*>(p.g0) + off;
-  float* dvr = static_cast<float*>(p.g1) + off;
-  for (int i = 0; i < D; ++i) {
-    dkr[i] = dKa[tid * (D + 1) + i];
-    dvr[i] = dVa[tid * (D + 1) + i];
-  }
-}
-
-// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int threads, int rows_per_block,
-                   size_t smem, const BwdParams& prm, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  // b*h on x (up to 2^31 - 1 blocks), row tiles on y (t / 64 <= 65535)
-  dim3 grid(prm.b * prm.h, prm.t / rows_per_block);
-  kernel<<<grid, threads, smem, stream>>>(prm);
-  return cudaGetLastError();
-}
 
 // The bf16 kernels: maps for q, k, v and dO with box heights q_rows (q and
 // dO) and kv_rows (k and v), then one block per (b*h, 128-row tile).
@@ -816,20 +633,14 @@ cudaError_t launch_tma(Kernel kernel, int q_rows, int kv_rows, size_t smem,
   return cudaGetLastError();
 }
 
-constexpr size_t dq_f32_smem(int d) {
-  return (size_t)(2 * R32 * (d + 1) + 2 * C32 * d) * sizeof(float);
-}
-constexpr size_t dkv_f32_smem(int d) {
-  return (size_t)(4 * R32 * (d + 1) + 2 * C32 * d + 2 * C32) * sizeof(float);
-}
-
-bool shape_ok(int t) { return t > 0 && t % ROWS == 0 && t % R32 == 0; }
+bool shape_ok(int t) { return t > 0 && t % ROWS == 0; }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Each function
-// returns a cudaError_t (0 = launched); the kernel runs on `stream`
-// asynchronously.
+// dtype: 0 = float32, 1 = bfloat16 (the preprocess takes both; dq and
+// dk/dv take bf16 here, f32 in flash_bwd_f32.cu). Strides are in elements.
+// Each function returns a cudaError_t (0 = launched); the kernel runs on
+// `stream` asynchronously.
 extern "C" int flash_bwd_preprocess(int dtype, int d, const void* out,
                                     long long o_sb, long long o_st,
                                     long long o_sh, const void* dout,
@@ -875,13 +686,6 @@ extern "C" int flash_bwd_dq(int dtype, int d, const void* q, const void* k,
     if (d == 128)
       return (int)launch_tma(flash_bwd_dq_bf16_kernel<128>, ROWS, KT,
                              DqSmem<128>::BYTES, prm, d, st);
-  } else if (dtype == 0) {
-    if (d == 64)
-      return (int)launch(flash_bwd_dq_f32_kernel<64>, R32, R32,
-                         dq_f32_smem(64), prm, st);
-    if (d == 128)
-      return (int)launch(flash_bwd_dq_f32_kernel<128>, R32, R32,
-                         dq_f32_smem(128), prm, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -910,13 +714,6 @@ extern "C" int flash_bwd_dkv(int dtype, int d, const void* q, const void* k,
     if (d == 128)
       return (int)launch_tma(flash_bwd_dkv_bf16_kernel<128, 32>, 32, ROWS,
                              DkvSmem<128, 32>::BYTES, prm, d, st);
-  } else if (dtype == 0) {
-    if (d == 64)
-      return (int)launch(flash_bwd_dkv_f32_kernel<64>, R32, R32,
-                         dkv_f32_smem(64), prm, st);
-    if (d == 128)
-      return (int)launch(flash_bwd_dkv_f32_kernel<128>, R32, R32,
-                         dkv_f32_smem(128), prm, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -69,8 +69,9 @@
 //     stores; lse = (m + log2 l) * ln 2 in f32. Each block owns its tile,
 //     so the output is bitwise deterministic.
 // The f32 kernel (one thread per query row on the CUDA cores, fp32 FMA, no
-// TF32) keeps full f32 precision; it serves the card tests, not the main
-// path, and is not redesigned.
+// TF32) keeps full f32 precision. It serves every f32 attention call on the
+// card and every hop of the ring (which runs in f32); it awaits its
+// redesign for Hopper (the f32 backward is 3xTF32 wgmma, flash_bwd_f32.cu).
 
 #include <math.h>   // INFINITY
 

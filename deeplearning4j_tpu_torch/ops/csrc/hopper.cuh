@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives shared by the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu): shared-memory access, mbarriers, TMA loads
-// and the host-side tensor maps they read through, warpgroup wgmma with its
-// shared-memory descriptors, the register budgets of a warp-specialised
-// block (setmaxnreg), and the layout of the tiles TMA writes.
+// (flash_fwd.cu, flash_bwd.cu, flash_bwd_f32.cu): shared-memory access,
+// mbarriers, TMA loads and the host-side tensor maps they read through,
+// warpgroup wgmma (bf16 and tf32) with its shared-memory descriptors, the
+// register budgets of a warp-specialised block (setmaxnreg), and the layout
+// of the tiles TMA writes.
 //
 // The block layout both kernels use: two consumer warpgroups (threads
 // 0..255, 64 output rows each) and a producer warpgroup (256..383) whose
@@ -108,6 +109,19 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
       "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(bar)
+      : "memory");
+}
+
+// One box of a 3-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted on `bar` in bytes.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(bar)
       : "memory");
 }
@@ -354,6 +368,79 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// ---- tf32 (k = 8: 32 bytes of a K-major row per step, as k16 of bf16) ----
+// Both shared-memory operands of a tf32 wgmma are K-major (the transpose
+// bits exist only for 16-bit types). The register A fragment of m64nNk8 is
+// not the accumulator layout: thread (warp, g, t4) holds rows 16 warp + g
+// and + 8 at k = t4 and t4 + 4 (CUTLASS's ALayout_64x8, as mma.sync's
+// m16n8k8), where the accumulator gives it columns 2 t4 and 2 t4 + 1.
+
+// The tf32 value nearest to x (ties away from zero), as f32 bits with the
+// low 13 mantissa bits clear.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// d (64 x 16, f32) (+)= A B, tf32 A and B from shared memory, K-major.
+__device__ __forceinline__ void wgmma_tf32_ss_n16(float* d, uint64_t a,
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 32, f32) (+)= A B, tf32 A and B from shared memory, K-major.
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float* d, uint64_t a,
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64, f32) (+)= A B, A (64 x 8 tf32) from registers, B from shared
+// memory, K-major.
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float* d, const uint32_t* a,
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <int N> struct WgmmaTf32;
+template <> struct WgmmaTf32<16> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int scale_d) {
+    wgmma_tf32_ss_n16(d, a, b, scale_d);
+  }
+};
+template <> struct WgmmaTf32<32> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int scale_d) {
+    wgmma_tf32_ss_n32(d, a, b, scale_d);
+  }
+};
 template <int N> struct Wgmma;
 template <> struct Wgmma<32> {
   static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
@@ -523,6 +610,24 @@ inline bool encode_view(CUtensorMap* map, const void* ptr, int b, int t, int h,
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D map over a contiguous f32 array [n2][n1][n0] (dims innermost
+// first), read in boxes of 32 columns (128 bytes) x `rows` x 1, 128-byte
+// swizzle: the K-major tiles of the tf32 kernels.
+inline bool encode_f32_3d(CUtensorMap* map, const float* ptr, long long n0,
+                          long long n1, long long n2, int rows) {
+  EncodeTiledFn encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)n0, (cuuint64_t)n1, (cuuint64_t)n2};
+  const cuuint64_t strides[2] = {(cuuint64_t)n0 * 4, (cuuint64_t)(n0 * n1) * 4};
+  const cuuint32_t box[3] = {32, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                const_cast<float*>(ptr), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

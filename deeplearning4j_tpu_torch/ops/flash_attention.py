@@ -22,11 +22,15 @@ give dk = dv = 0, exactly. The mask gets no gradient.
   blockwise PyTorch mirrors of the reference tile math, in f32. The CPU
   path and the yardsticks the kernels are held against.
 * the CUDA kernels (``csrc/flash_fwd.cu``; ``csrc/flash_bwd.cu`` with the
-  Δ preprocess, dq and fused dk/dv entries; bf16 or f32, d ∈ {64, 128},
-  ``t % 128 == 0``) — launched for CUDA tensors; anything they do not take
-  raises, there is no fallback. The bf16 forward, dq and dk/dv kernels are
-  wgmma kernels fed by TMA; :func:`tma_layout` is the host-side layout of
-  the tensor maps they read q, k, v (and dO) through.
+  Δ preprocess and the bf16 dq and fused dk/dv entries;
+  ``csrc/flash_bwd_f32.cu`` with the f32 pre-pass, dq and fused dk/dv
+  entries; bf16 or f32, d ∈ {64, 128}, ``t % 128 == 0``) — launched for
+  CUDA tensors; anything they do not take raises, there is no fallback.
+  The bf16 forward, dq and dk/dv kernels are wgmma kernels fed by TMA;
+  :func:`tma_layout` is the host-side layout of the tensor maps they read
+  q, k, v (and dO) through. The f32 dq and dk/dv kernels are 3xTF32 wgmma
+  kernels fed by TMA from the pre-pass's scratch (:func:`tf32_split`,
+  :func:`flash_bwd_split_plain`).
 
 :func:`flash_attention_fwd` and :func:`flash_attention_bwd` pick by the
 tensors' device.
@@ -53,6 +57,9 @@ FLASH_FWD = _nvcc.kernel("flash_fwd")
 FLASH_BWD_PREPROCESS = _nvcc.kernel("flash_bwd_preprocess", "flash_bwd")
 FLASH_BWD_DQ = _nvcc.kernel("flash_bwd_dq", "flash_bwd")
 FLASH_BWD_DKV = _nvcc.kernel("flash_bwd_dkv", "flash_bwd")
+FLASH_BWD_SPLIT_F32 = _nvcc.kernel("flash_bwd_split_f32", "flash_bwd_f32")
+FLASH_BWD_DQ_F32 = _nvcc.kernel("flash_bwd_dq_f32", "flash_bwd_f32")
+FLASH_BWD_DKV_F32 = _nvcc.kernel("flash_bwd_dkv_f32", "flash_bwd_f32")
 
 _P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 # C signatures (csrc/*.cu): dtype and head dim, pointers, [b, t, h] strides,
@@ -61,6 +68,11 @@ _FWD_ARGS = [_I, _I] + [_P] * 6 + [_LL] * 9 + [_I] * 3 + [_F, _I, _P]
 _PRE_ARGS = [_I, _I, _P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P, _I, _I, _I, _P]
 _DQ_ARGS = [_I, _I] + [_P] * 8 + [_LL] * 12 + [_I] * 3 + [_F, _I, _P]
 _DKV_ARGS = [_I, _I] + [_P] * 9 + [_LL] * 12 + [_I] * 3 + [_F, _I, _P]
+# the f32 entries (csrc/flash_bwd_f32.cu): head dim, pointers (the scratch
+# of splits first), sizes, scale, causal, stream
+_SPLIT_ARGS = [_I] + [_P] * 4 + [_LL] * 12 + [_P] + [_I] * 3 + [_P]
+_DQ32_ARGS = [_I] + [_P] * 5 + [_I] * 3 + [_F, _I, _P]
+_DKV32_ARGS = [_I] + [_P] * 6 + [_I] * 3 + [_F, _I, _P]
 
 
 def _resolve_scale(scale: Optional[float], d: int) -> float:
@@ -137,6 +149,40 @@ def flash_attention_fwd_plain(q, k, v, mask=None, *, causal: bool = False,
 def flash_bwd_preprocess_plain(out, dout) -> torch.Tensor:
     """Δ [b, h, t] f32 = rowsum(dO∘O) over d, in f32."""
     return (dout.float() * out.float()).sum(dim=-1).transpose(1, 2)
+
+
+# The f32 kernels' pre-pass scratch: for each (b, h), planes of t·d floats,
+# the tf32 hi and lo of q, k, v and dO row by row ([t][d]) and of q, k and
+# dO transposed ([d][t], t permuted within each group of 8 as the kernels'
+# register operands need: position p holds row 2p for p < 4, 2(p − 4) + 1
+# for p ≥ 4). Plane order: (q, k, v, dO, qᵀ, kᵀ, dOᵀ) × (hi, lo).
+SPLIT_TENSORS = 7
+_SPLIT_PERM = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of an f32 tensor as the kernels split it: ``hi`` is x
+    rounded to the nearest tf32 value (10 mantissa bits; ties away from
+    zero, as ``cvt.rna.tf32.f32``), ``lo`` is ``x − hi`` rounded the same
+    way. Both are f32 tensors whose low 13 mantissa bits are clear."""
+    def rna(y):
+        bits = y.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    hi = rna(x.float())
+    return hi, rna(x.float() - hi)
+
+
+def flash_bwd_split_plain(q, k, v, dout) -> torch.Tensor:
+    """The f32 pre-pass's scratch ``[7, 2, b·h, t·d]`` (see
+    ``SPLIT_TENSORS``) from [b, t, h, d] views, in plain PyTorch."""
+    b, t, h, d = q.shape
+    rows = [x.float().permute(0, 2, 1, 3).reshape(b * h, t, d)
+            for x in (q, k, v, dout)]
+    perm = (torch.arange(t, device=q.device).view(-1, 8)[
+        :, list(_SPLIT_PERM)].reshape(-1))
+    cols = [r[:, perm].transpose(1, 2) for r in (rows[0], rows[1], rows[3])]
+    return torch.stack([torch.stack(tf32_split(x)).reshape(2, b * h, t * d)
+                        for x in rows + cols])
 
 
 def _bwd_blocks(q, k, v, mask, out, lse, dout, causal: bool, scale: float,
@@ -364,39 +410,70 @@ def _bwd_entry_args(q, k, v, mask, lse, delta, dout):
     return mask, ptrs, strides
 
 
+def _flash_bwd_split_cuda(q, k, v, dout):
+    """The f32 kernels' scratch ``[7, 2, b·h, t·d]`` from the pre-pass
+    kernel (what :func:`flash_bwd_split_plain` computes)."""
+    b, t, h, d = q.shape
+    split = torch.empty((SPLIT_TENSORS, 2, b * h, t * d), dtype=torch.float32,
+                        device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _launched(FLASH_BWD_SPLIT_F32, FLASH_BWD_SPLIT_F32.fn(_SPLIT_ARGS)(
+        d, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *dout.stride()[:3], split.data_ptr(), b, t, h, stream))
+    return split
+
+
 def _flash_bwd_dq_cuda(q, k, v, mask, lse, delta, dout, causal: bool,
-                       scale: float):
-    """dq [b, t, h, d] from the dq kernel (inputs checked by the caller)."""
+                       scale: float, split=None):
+    """dq [b, t, h, d] from the dq kernel (inputs checked by the caller).
+    f32 reads the pre-pass's ``split`` (run here when not given)."""
     b, t, h, d = q.shape
     mask, ptrs, strides = _bwd_entry_args(q, k, v, mask, lse, delta, dout)
     dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    flops = _flops(DQ_FLOPS_PER_PAIR, b, h, t, d, causal)
+    if q.dtype == torch.float32:
+        if split is None:
+            split = _flash_bwd_split_cuda(q, k, v, dout)
+        _launched(FLASH_BWD_DQ_F32, FLASH_BWD_DQ_F32.fn(_DQ32_ARGS)(
+            d, split.data_ptr(), *ptrs[4:], dq.data_ptr(), b, t, h,
+            float(scale), int(bool(causal)), stream), flops)
+        return dq
     _launched(FLASH_BWD_DQ, FLASH_BWD_DQ.fn(_DQ_ARGS)(
-        1 if q.dtype == torch.bfloat16 else 0, d, *ptrs, dq.data_ptr(),
-        *strides, b, t, h, float(scale), int(bool(causal)), stream),
-        _flops(DQ_FLOPS_PER_PAIR, b, h, t, d, causal))
+        1, d, *ptrs, dq.data_ptr(), *strides, b, t, h, float(scale),
+        int(bool(causal)), stream), flops)
     return dq
 
 
 def _flash_bwd_dkv_cuda(q, k, v, mask, lse, delta, dout, causal: bool,
-                        scale: float):
-    """(dk, dv) [b, t, h, d] from the fused dk/dv kernel."""
+                        scale: float, split=None):
+    """(dk, dv) [b, t, h, d] from the fused dk/dv kernel. f32 reads the
+    pre-pass's ``split`` (run here when not given)."""
     b, t, h, d = q.shape
     mask, ptrs, strides = _bwd_entry_args(q, k, v, mask, lse, delta, dout)
     dk, dv = (torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
               for _ in range(2))
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    flops = _flops(DKV_FLOPS_PER_PAIR, b, h, t, d, causal)
+    if q.dtype == torch.float32:
+        if split is None:
+            split = _flash_bwd_split_cuda(q, k, v, dout)
+        _launched(FLASH_BWD_DKV_F32, FLASH_BWD_DKV_F32.fn(_DKV32_ARGS)(
+            d, split.data_ptr(), *ptrs[4:], dk.data_ptr(), dv.data_ptr(),
+            b, t, h, float(scale), int(bool(causal)), stream), flops)
+        return dk, dv
     _launched(FLASH_BWD_DKV, FLASH_BWD_DKV.fn(_DKV_ARGS)(
-        1 if q.dtype == torch.bfloat16 else 0, d, *ptrs, dk.data_ptr(),
-        dv.data_ptr(), *strides, b, t, h, float(scale), int(bool(causal)),
-        stream), _flops(DKV_FLOPS_PER_PAIR, b, h, t, d, causal))
+        1, d, *ptrs, dk.data_ptr(), dv.data_ptr(), *strides, b, t, h,
+        float(scale), int(bool(causal)), stream), flops)
     return dk, dv
 
 
 def _flash_bwd_cuda(q, k, v, mask, out, lse, dout, causal: bool,
                     scale: float):
-    """The three backward kernels: Δ = rowsum(dO∘O), then dq, then the
-    fused dk/dv. ``lse`` is the forward's [b, h, t] f32."""
+    """The backward kernels: Δ = rowsum(dO∘O), for f32 the pre-pass of
+    tf32 splits, then dq, then the fused dk/dv. ``lse`` is the forward's
+    [b, h, t] f32."""
     b, t, h, d = q.shape
     _check_kernel_inputs(q, (("q", q), ("k", k), ("v", v), ("out", out),
                              ("dout", dout)))
@@ -404,15 +481,19 @@ def _flash_bwd_cuda(q, k, v, mask, out, lse, dout, causal: bool,
         raise ValueError(f"flash backward takes the forward's f32 lse "
                          f"{(b, h, t)}, got {lse.dtype} {tuple(lse.shape)}")
     lse = lse.contiguous()
+    if lse.data_ptr() % 16:   # both dk/dv kernels bulk-copy lse tile by tile
+        raise ValueError("flash backward needs a 16-byte aligned lse")
+    split = None
     if q.dtype == torch.bfloat16:   # the wgmma kernels load through TMA
         for name, x in (("q", q), ("k", k), ("v", v), ("dout", dout)):
             tma_layout(x, name)
-        if lse.data_ptr() % 16:
-            raise ValueError("flash backward needs a 16-byte aligned lse")
     delta = _flash_bwd_preprocess_cuda(out, dout)
-    dq = _flash_bwd_dq_cuda(q, k, v, mask, lse, delta, dout, causal, scale)
+    if q.dtype == torch.float32:   # the f32 kernels read the pre-pass's splits
+        split = _flash_bwd_split_cuda(q, k, v, dout)
+    dq = _flash_bwd_dq_cuda(q, k, v, mask, lse, delta, dout, causal, scale,
+                            split)
     dk, dv = _flash_bwd_dkv_cuda(q, k, v, mask, lse, delta, dout, causal,
-                                 scale)
+                                 scale, split)
     return dq, dk, dv
 
 

@@ -309,21 +309,31 @@ def _card_inputs(t, d, dtype, device, seed):
             torch.from_numpy(mask).to(device))
 
 
+def _bwd_kernels(dtype):
+    """The kernels one backward launches once each: the Δ preprocess, then
+    bf16's dq and dk/dv, or f32's pre-pass of tf32 splits, dq and dk/dv."""
+    if dtype == torch.float32:
+        return (tfa.FLASH_BWD_PREPROCESS, tfa.FLASH_BWD_SPLIT_F32,
+                tfa.FLASH_BWD_DQ_F32, tfa.FLASH_BWD_DKV_F32)
+    return (tfa.FLASH_BWD_PREPROCESS, tfa.FLASH_BWD_DQ, tfa.FLASH_BWD_DKV)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [128, 256, 2048])
+@pytest.mark.parametrize("t", [128, 256, 384, 512, 2048])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_cuda_backward_kernels_match_plain(cuda_device, t, d, dtype, causal):
-    """f32: dq, dk, dv within 1e-4 (f32 on both sides, no TF32); bf16:
-    within ``bf16_grad_tolerance`` element by element. One tile, a few
-    tiles and the flagship length; q/k/v read in place from a qkv tensor
-    and a strided dout. Masked keys and rows with no key give exact zeros.
-    Each kernel launches once."""
+    """f32: dq, dk, dv within 1e-4 (3xTF32 against the plain f32, no TF32);
+    bf16: within ``bf16_grad_tolerance`` element by element. One tile, a
+    few tiles, an odd number of 128-row tiles, the ring's hop length and
+    the flagship length; q/k/v read in place from a qkv tensor and a
+    strided dout. Masked keys and rows with no key give exact zeros. Each
+    kernel launches once."""
     q, k, v, dout, mask = _card_inputs(t, d, dtype, cuda_device, seed=14)
     assert not q.is_contiguous() and not dout.is_contiguous()
     out, lse = tfa.flash_attention_fwd(q, k, v, mask, causal=causal)
-    kernels = (tfa.FLASH_BWD_PREPROCESS, tfa.FLASH_BWD_DQ, tfa.FLASH_BWD_DKV)
+    kernels = _bwd_kernels(dtype)
     before = [kn.launches for kn in kernels]
     got = tfa.flash_attention_bwd(q, k, v, mask, out, lse, dout,
                                   causal=causal)
@@ -348,11 +358,12 @@ def test_cuda_backward_kernels_match_plain(cuda_device, t, d, dtype, causal):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128])
-def test_cuda_backward_kernels_are_deterministic(cuda_device, d):
-    """Each block owns its output tile (two passes, no atomics), so two
-    launches on the same inputs give bitwise equal dq, dk and dv."""
-    q, k, v, dout, mask = _card_inputs(2048, d, torch.bfloat16, cuda_device,
-                                       seed=16)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_backward_kernels_are_deterministic(cuda_device, d, dtype):
+    """Each block owns its output tile (two passes, no atomics, a fixed
+    order of sums), so two launches on the same inputs give bitwise equal
+    dq, dk and dv."""
+    q, k, v, dout, mask = _card_inputs(2048, d, dtype, cuda_device, seed=16)
     for m in (None, mask):
         out, lse = tfa.flash_attention_fwd(q, k, v, m, causal=True)
         first = tfa.flash_attention_bwd(q, k, v, m, out, lse, dout,
