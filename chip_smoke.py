@@ -6,16 +6,17 @@ Phases, in order; any failure propagates and the script exits non-zero:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: the kernel sources from deeplearning4j_tpu_torch/ops/csrc
-   (flash_fwd.cu, flash_bwd.cu, flash_bwd_f32.cu), one nvcc each, all at
-   once (a second run reuses the builds); each one's build seconds,
-   registers and spills (``-Xptxas -v``); the SASS of every library
-   (``cuobjdump -sass``): per kernel the counts of HGMMA (wgmma), UTMALDG
-   (TMA tile loads), UBLKCP (bulk copies) and LDGSTS (cp.async) — a bf16
-   forward, dq or dk/dv instance or an f32 (3xTF32) dq or dk/dv instance
-   without HGMMA or UTMALDG fails the run;
-3. forward kernel vs plain: the flash-attention forward kernel against its
-   plain PyTorch version on the same inputs on the card, over head dims,
-   dtypes, causal or not, masks (including fully masked rows) and lengths;
+   (flash_fwd.cu, flash_fwd_f32.cu, flash_bwd.cu, flash_bwd_f32.cu), one
+   nvcc each, all at once (a second run reuses the builds); each one's
+   build seconds, registers and spills (``-Xptxas -v``); the SASS of every
+   library (``cuobjdump -sass``): per kernel the counts of HGMMA (wgmma),
+   UTMALDG (TMA tile loads), UBLKCP (bulk copies) and LDGSTS (cp.async) —
+   a bf16 forward, dq or dk/dv instance or an f32 (3xTF32) forward, dq or
+   dk/dv instance without HGMMA or UTMALDG fails the run;
+3. forward kernel vs plain: the flash-attention forward kernels (bf16, and
+   the f32 one after its pre-pass) against their plain PyTorch version on
+   the same inputs on the card, over head dims, dtypes, causal or not,
+   masks (including fully masked rows: exactly 0 and -1e30) and lengths;
    then, at the flagship shape, two launches must give bitwise equal out
    and lse, and the kernel is timed beside the plain version, the bound
    (and its share of it) and torch's scaled_dot_product_attention (timed
@@ -30,8 +31,10 @@ Phases, in order; any failure propagates and the script exits non-zero:
    each kernel is timed beside the plain backward, its bound (and its
    share of it; f32 with both the FFMA and the 3xTF32 bound), and the
    backward of scaled_dot_product_attention on the same dtype (a yardstick
-   only; dq + dk/dv is reported as a ratio of it); the f32 forward
-   instance beside the forward of scaled_dot_product_attention in f32;
+   only; dq + dk/dv is reported as a ratio of it); the f32 forward kernel
+   alone (its out and lse errors apart, two launches bitwise equal, its
+   3xTF32 and FFMA bounds) and its pre-pass (bitwise its plain version)
+   beside the forward of scaled_dot_product_attention in f32;
 5. forward main path: the flagship transformer LM (d_model 768, 12
    layers, 12 heads, d_ff 3072, V 32768, mixed_bf16) built and initialised
    by the port on the card, one forward over [8, 2048] ids through the
@@ -50,6 +53,9 @@ Phases, in order; any failure propagates and the script exits non-zero:
    forward with the plain backward (which a backward missing one key tile
    must fail); two timed rounds of fit_repeated(k=8) (losses finite and
    falling), the same for the dense attention route; one step profiled;
+   then a step of transformer_lm(d_model=512, n_heads=16) (head dim 32,
+   which no kernel takes) in f32 under the auto route: no flash kernel
+   launches, and it equals the step forced onto the dense path bitwise;
 8. substrate main path: the flagship (the same widths and depth) trained
    through the port's training substrate from a sharded record set (16
    shards of 8 token sequences of 2048, written by data.records) read by
@@ -200,8 +206,8 @@ Phases, in order; any failure propagates and the script exits non-zero:
    wall with the listener and without, each endpoint's ms;
 15. distribution: the ring's per-hop entries on a virtual 4-rank ring at
    the flagship's attention shape [8, 2048, 12, 64] in f32, causal (each
-   f32 kernel — the forward, Δ, the pre-pass and the 3xTF32 dq and dk/dv
-   — must launch 10 times: 4 diagonal and 6 pre-diagonal hops, and the
+   f32 kernel — the forward's pre-pass and 3xTF32 kernel, Δ, the
+   backward's pre-pass and the 3xTF32 dq and dk/dv — must launch 10 times: 4 diagonal and 6 pre-diagonal hops, and the
    bf16 dq and dk/dv none), its out, lse, dq, dk and dv against the
    monolithic f32 kernels, unmasked and with a ragged mask and a fully
    masked row (0 and -1e30), each hop's times (the backward kernel by
@@ -368,11 +374,12 @@ SEED = 20261016
 DEV = torch.device("cuda")
 KERNELS = (fa.FLASH_FWD, fa.FLASH_BWD_PREPROCESS, fa.FLASH_BWD_DQ,
            fa.FLASH_BWD_DKV, fa.FLASH_BWD_SPLIT_F32, fa.FLASH_BWD_DQ_F32,
-           fa.FLASH_BWD_DKV_F32)
+           fa.FLASH_BWD_DKV_F32, fa.FLASH_FWD_SPLIT_F32, fa.FLASH_FWD_F32)
 # the kernels a bf16 attention step launches, and those an f32 one (the
 # ring's hops) launches
 BF16_KERNELS = KERNELS[:4]
-F32_KERNELS = (fa.FLASH_FWD, fa.FLASH_BWD_PREPROCESS, fa.FLASH_BWD_SPLIT_F32,
+F32_KERNELS = (fa.FLASH_FWD_SPLIT_F32, fa.FLASH_FWD_F32,
+               fa.FLASH_BWD_PREPROCESS, fa.FLASH_BWD_SPLIT_F32,
                fa.FLASH_BWD_DQ_F32, fa.FLASH_BWD_DKV_F32)
 # H100 SXM published dense peaks (NVIDIA data sheet), at the 700 W limit
 PEAK_BF16_FLOPS = 989e12
@@ -391,8 +398,9 @@ def launched_as(launches, n, kernels):
                for name, c in launches.items())
 
 # Kernel vs plain, on the same inputs on the card.
-# f32: both accumulate in f32 (TF32 off), only the summation order differs:
-# out and lse within 1e-4.
+# f32: the kernel takes S and P·V in 3xTF32 (about 3·2^-22 of |A|·|B| a
+# product, near f32's 2^-24), the plain version in f32 (TF32 off); the
+# softmax is f32 on both sides: out and lse within 1e-4.
 # bf16 out: element by element within fa.bf16_out_tolerance,
 # 2^-7·(|out| + (P·|V|)/l) — the kernel rounds P to bf16 for P·V, and both
 # sides round out to bf16. With q/k/v ~ N(0, 1) and d = 64 the logits have
@@ -496,8 +504,9 @@ FLAGSHIP = {"V": 32768, "L": 12, "D": 768, "H": 12, "F": 3072, "T": 2048,
 # cp.async
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS")
 # the instances that must run on wgmma fed by TMA: the bf16 kernels and the
-# f32 (3xTF32) backward kernels
+# f32 (3xTF32) forward and backward kernels
 WGMMA_KERNELS = {"flash_fwd": ("flash_fwd_bf16<64>", "flash_fwd_bf16<128>"),
+                 "flash_fwd_f32": ("flash_fwd_f32<64>", "flash_fwd_f32<128>"),
                  "flash_bwd_dq": ("flash_bwd_dq_bf16<64>",
                                   "flash_bwd_dq_bf16<128>"),
                  "flash_bwd_dkv": ("flash_bwd_dkv_bf16<64,64>",
@@ -723,44 +732,101 @@ def phase_kernel_vs_plain():
     print(f"kernel vs plain: {n_cases} cases passed")
 
 
+def fwd_f32_entry(q, k, v, causal=True):
+    """A launch of the f32 forward kernel alone through its C entry, on the
+    scratch of one pre-pass and into fixed buffers (the wrapper runs the
+    pre-pass and allocates on every call)."""
+    b, t, h, d = q.shape
+    split = fa._flash_fwd_split_cuda(q, k, v)
+    out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    fn = fa.FLASH_FWD_F32.fn(fa._FWD32_ARGS)
+    args = (d, split.data_ptr(), None, out.data_ptr(), lse.data_ptr(), b, t,
+            h, d ** -0.5, int(causal))
+
+    def launch():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"flash_fwd_f32 launch failed: {err}")
+    return launch
+
+
 def fwd_timing(b, t, h, d, dtype=torch.bfloat16):
     """The forward kernel at [b, t, h, d] causal on strided qkv slices,
-    bf16 or f32: checked against the plain version, then timed beside it,
-    the bound and scaled_dot_product_attention on the same views. The f32
-    instance (FFMA on the CUDA cores) is held to the FFMA bound; the
-    3xTF32 bound is reported beside it."""
+    bf16 or f32: checked against the plain version (out and lse apart),
+    two launches bitwise equal, then timed beside the plain version, the
+    bound and scaled_dot_product_attention on the same views. The f32
+    kernel (3xTF32) is timed alone, held to its 3xTF32 bound with the FFMA
+    one beside it, and its pre-pass (bitwise its plain version) gets a row
+    of its own under "pre_pass"."""
+    f32 = dtype == torch.float32
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
     q, k, v = make_qkv(gen, b, t, h, d, dtype)
     out, lse = fa.flash_attention_fwd(q, k, v, None, causal=True)
-    ref, _ = fa.flash_attention_fwd_plain(q, k, v, None, causal=True)
+    ref, ref_lse = fa.flash_attention_fwd_plain(q, k, v, None, causal=True)
     err, ratio = out_error(q, k, v, None, True, out, ref)
-    if not ratio <= 1.0:
+    e_lse = (lse - ref_lse).abs().max().item()
+    if not (ratio <= 1.0 and e_lse <= TOL_LSE[dtype]):
         raise AssertionError(f"[{b}, {t}, {h}, {d}] kernel error {err} is "
-                             f"{ratio:.3g} of its bound")
+                             f"{ratio:.3g} of its bound, lse {e_lse}")
     # each block owns its output tile: a second launch gives the same bits
     out2, lse2 = fa.flash_attention_fwd(q, k, v, None, causal=True)
     same = torch.equal(out, out2) and torch.equal(lse, lse2)
-    del ref, out2, lse2
-    ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, None, causal=True), 20)
+    del ref, ref_lse, out2, lse2
+    if f32:
+        ms = cuda_ms(fwd_f32_entry(q, k, v), 20)
+        wrapper_ms = cuda_ms(
+            lambda: fa.flash_attention_fwd(q, k, v, None, causal=True), 20)
+    else:
+        ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, None,
+                                                    causal=True), 20)
     plain_ms = cuda_ms(lambda: fa.flash_attention_fwd_plain(
         q, k, v, None, causal=True), 3, warmup=1)
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=True), 20)
     itemsize = q.element_size()
-    bound_ms, bound_by = flash_bound(b, t, h, d, True, None, itemsize)
-    extra = {}
-    if dtype == torch.float32:
-        extra["bound_3xtf32_ms"] = flash_bound(b, t, h, d, True, None, 4,
-                                               PEAK_3XTF32_FLOPS)[0]
+    bound_ms, bound_by = flash_bound(b, t, h, d, True, None, itemsize,
+                                     PEAK_3XTF32_FLOPS)
+    extra = {"max_abs_err_lse": e_lse}
+    if f32:
+        extra.update(bound_ffma_ms=flash_bound(b, t, h, d, True, None, 4)[0],
+                     bound_3xtf32_ms=bound_ms, wrapper_ms=wrapper_ms)
+        split = fa._flash_fwd_split_cuda(q, k, v)
+        split_err = (split - fa.flash_fwd_split_plain(q, k, v)
+                     ).abs().max().item()
+        if split_err != 0.0:
+            raise AssertionError(f"the f32 forward pre-pass is off its "
+                                 f"plain version by {split_err}")
+        del split
+        x = b * t * h * d * 4
+        # 3 tensors read, their 6 planes written; 2 roundings a value
+        t_ops = 2 * 3 * b * t * h * d / PEAK_F32_FLOPS * 1e3
+        t_bytes = (3 * x + 2 * fa.FWD_SPLIT_TENSORS * x) / PEAK_BYTES * 1e3
+        split_ms = cuda_ms(lambda: fa._flash_fwd_split_cuda(q, k, v), 20)
+        extra["pre_pass"] = {
+            "max_abs_err": split_err, "ms": split_ms,
+            "plain_ms": cuda_ms(lambda: fa.flash_fwd_split_plain(q, k, v),
+                                3, warmup=1),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_share": max(t_ops, t_bytes) / split_ms,
+            "library_ms": None}
     print(f"flash_fwd at [b={b}, t={t}, h={h}, d={d}] causal "
           f"{str(dtype)[6:]}: "
           f"kernel {ms:.4f} ms = {ms / library_ms:.3f}x sdpa "
           f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}; "
           f"{100 * bound_ms / ms:.1f}% of it); plain {plain_ms:.4f} ms; "
-          f"max|dout| vs plain {err:.6g} ({ratio:.4g} of its bound); out and "
-          f"lse bitwise equal over two launches: {same}"
-          + "".join(f"; {k} {x:.4f}" for k, x in extra.items()))
+          f"max|dout| vs plain {err:.6g} ({ratio:.4g} of its bound), "
+          f"max|dlse| {e_lse:.6g}; out and lse bitwise equal over two "
+          f"launches: {same}"
+          + (f"; FFMA bound {extra['bound_ffma_ms']:.4f} ms; the wrapper "
+             f"(pre-pass, kernel, allocations) {wrapper_ms:.4f} ms; the "
+             f"pre-pass {extra['pre_pass']['ms']:.4f} ms (bound "
+             f"{extra['pre_pass']['bound_ms']:.4f} ms, "
+             f"{extra['pre_pass']['bound_by']}; plain "
+             f"{extra['pre_pass']['plain_ms']:.4f} ms), bitwise its plain "
+             f"version" if f32 else ""))
     if not same:
         raise AssertionError("the forward kernel is not deterministic")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1311,15 +1377,18 @@ def bwd_timing(dtype, build):
 
 def phase_bwd_timing(build):
     """The backward kernels timed in bf16 and in f32 (the ring's and every
-    f32 call's instances), and the f32 forward instance beside the
-    forward of scaled_dot_product_attention in f32. Timing and check
-    launches do not count."""
+    f32 call's instances), and the f32 forward kernel and its pre-pass
+    beside the forward of scaled_dot_product_attention in f32. Timing and
+    check launches do not count."""
     before = [kn.launches for kn in KERNELS]
     res = bwd_timing(torch.bfloat16, build)
     res.update(bwd_timing(torch.float32, build))
     b, t, h = (FLAGSHIP[k] for k in "BTH")
-    res["flash_fwd_f32"] = fwd_timing(b, t, h, FLAGSHIP["D"] // h,
-                                      torch.float32)
+    fwd = fwd_timing(b, t, h, FLAGSHIP["D"] // h, torch.float32)
+    res["flash_fwd_split_f32"] = fwd.pop("pre_pass")
+    res["flash_fwd_f32"] = fwd
+    fwd["instances"] = {label: build.get(label, {})
+                        for label in WGMMA_KERNELS["flash_fwd_f32"]}
     for kn, n in zip(KERNELS, before):
         kn.launches = n
     return res
@@ -1514,7 +1583,54 @@ def phase_training(net):
               f"{step_s * 1e3:.3f} ms step ({100 * dev_ms / (step_s * 1e3):.1f}%)")
     for kn, n in zip(KERNELS, before):   # timing launches do not count
         kn.launches = n
+    auto_route_d32()
     return launches
+
+
+# A net whose head dim no kernel takes: transformer_lm(d_model=512,
+# n_heads=16) (head dim 32) in its default dtype, f32, at [8, 1024], one
+# layer of its four
+AUTO_D32 = {"V": 32768, "D": 512, "H": 16, "F": 1024, "T": 1024, "B": 8}
+
+
+def auto_route_d32():
+    """Under auto (DL4JTPU_FLASH_ATTENTION unset) a step of a head-dim-32
+    transformer runs on the card through the dense path: no flash kernel
+    launches, its loss is finite, and the step equals the one forced onto
+    the dense path (flag 0) bit for bit."""
+    if "DL4JTPU_FLASH_ATTENTION" in os.environ:
+        raise AssertionError("the auto-route check needs the flag unset")
+    V, D, H, F, T, B = (AUTO_D32[k] for k in "VDHFTB")
+    ids = np.random.default_rng(SEED + 6).integers(
+        0, V, (B, T + 1)).astype(np.int32)
+    x = torch.as_tensor(ids[:, :-1], device=DEV)
+    y = torch.as_tensor(ids[:, 1:], device=DEV)
+
+    def step():
+        net = ComputationGraph(transformer_lm(
+            V, n_layers=1, d_model=D, n_heads=H, d_ff=F, input_ids=True,
+            seed=SEED)).init()
+        return float(net.fit_batch(x, y)), net
+    before = [kn.launches for kn in KERNELS]
+    loss, net = step()
+    torch.cuda.synchronize()
+    launched = {kn.name: kn.launches - n for kn, n in zip(KERNELS, before)}
+    os.environ["DL4JTPU_FLASH_ATTENTION"] = "0"
+    try:
+        dense_loss, dense_net = step()
+    finally:
+        del os.environ["DL4JTPU_FLASH_ATTENTION"]
+    worst, same = max_rel_diff(net, dense_net)
+    print(f"auto route, transformer_lm(d_model={D}, n_heads={H}) (head dim "
+          f"{D // H}) f32 at [{B}, {T}], one step: loss {loss:.6g}, flash "
+          f"launches {launched}; the dense route's loss {dense_loss:.6g}, "
+          f"parameters {'bitwise equal' if same else f'max rel {worst:.3g}'}")
+    if any(launched.values()) or not np.isfinite(loss):
+        raise AssertionError("a head-dim-32 step under auto launched a "
+                             "flash kernel or lost its loss")
+    if not (same and loss == dense_loss):
+        raise AssertionError("a head-dim-32 step under auto is not the "
+                             "dense route's")
 
 
 # --------------------------------------------------------------------------
@@ -4801,7 +4917,7 @@ def ring_case(gen, mask_kind):
 def ring_timing(q, k, v, g):
     """Per-hop and summed kernel times of the virtual ring beside the
     monolithic f32 and bf16 kernels, with the bounds of a hop (f32: the
-    FFMA bound of the forward, the 3xTF32 bounds of dq and dk/dv) and
+    3xTF32 bounds, the forward's FFMA bound beside) and
     scaled_dot_product_attention on the hop's f32 operands (its forward,
     and its backward through torch.autograd.grad)."""
     b, t, h, d, n = (RING[k] for k in ("B", "T", "H", "D", "ranks"))
@@ -4814,6 +4930,8 @@ def ring_timing(q, k, v, g):
         out, lse = fa._flash_fwd_cuda(qh, kh, vh, None, causal, s)
         res[f"hop_fwd_{kind}_ms"] = cuda_ms(
             lambda: fa._flash_fwd_cuda(qh, kh, vh, None, causal, s), 20)
+        res[f"hop_fwd_split_{kind}_ms"] = cuda_ms(
+            lambda: fa._flash_fwd_split_cuda(qh, kh, vh), 20)
         res[f"hop_bwd_{kind}_ms"] = cuda_ms(
             lambda: fa._flash_bwd_cuda(qh, kh, vh, None, out, lse, gh,
                                        causal, s), 20)
@@ -4828,11 +4946,12 @@ def ring_timing(q, k, v, g):
                 ("dkv", lambda: fa._flash_bwd_dkv_cuda(
                     qh, kh, vh, None, lse, delta, gh, causal, s, split))):
             res[f"hop_{name}_{kind}_ms"] = cuda_ms(fn, 20)
-        bound, by = flash_bound(b, tl, h, d, causal, None, 4)
+        bound, by = flash_bound(b, tl, h, d, causal, None, 4,
+                                PEAK_3XTF32_FLOPS)
         res[f"hop_fwd_{kind}_bound_ms"], res[f"hop_fwd_{kind}_bound_by"] = \
             bound, by
-        res[f"hop_fwd_{kind}_bound_3xtf32_ms"] = flash_bound(
-            b, tl, h, d, causal, None, 4, PEAK_3XTF32_FLOPS)[0]
+        res[f"hop_fwd_{kind}_bound_ffma_ms"] = flash_bound(
+            b, tl, h, d, causal, None, 4)[0]
         # the hop's backward runs Δ, the pre-pass, dq and dk/dv back to
         # back: the sum of their bounds
         bwd = bwd_bounds(b, tl, h, d, 4, causal, PEAK_3XTF32_FLOPS)
@@ -6779,15 +6898,22 @@ def main():
                 "launches": train_launches["flash_bwd_dkv"],
                 **bwd_timing["flash_bwd_dkv"]}]
     # the f32 instances: their main path is the sequence-parallel step, the
-    # ring of f32 hops (launches over its 2 counted steps); the forward and
-    # Δ instances share their entry's launch counter with the bf16 ones
+    # ring of f32 hops (launches over its 2 counted steps); the Δ instance
+    # shares its entry's launch counter with the bf16 one
     ring = distribution["ring_launches"]
     kernels += [
-        {"name": "flash_fwd_f32", "counter": "flash_fwd", "route": "cuda",
-         "source": src + "flash_fwd.cu", "replaces": ref + "91",
-         "replaces_also": ref + "124", "instance": "flash_fwd_f32<64>",
+        {"name": "flash_fwd_split_f32", "route": "cuda",
+         "source": src + "flash_fwd_f32.cu", "replaces": ref + "91",
+         "replaces_also": ref + "124",
+         "replaces_note": "the pre-pass of the f32 forward kernel (tf32 "
+                          "splits, v transposed); no TPU kernel of its own",
+         "launches": ring["flash_fwd_split_f32"],
+         **bwd_timing["flash_fwd_split_f32"]},
+        {"name": "flash_fwd_f32", "route": "cuda",
+         "source": src + "flash_fwd_f32.cu", "replaces": ref + "91",
+         "replaces_also": ref + "124",
          "tpu_kernels": ["_fwd_kernel_vmem", "_fwd_kernel_stream"],
-         "launches": ring["flash_fwd"], **bwd_timing["flash_fwd_f32"]},
+         "launches": ring["flash_fwd_f32"], **bwd_timing["flash_fwd_f32"]},
         {"name": "flash_bwd_preprocess_f32",
          "counter": "flash_bwd_preprocess", "route": "cuda",
          "source": src + "flash_bwd.cu", "replaces": ref + "442",

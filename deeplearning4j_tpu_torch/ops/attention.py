@@ -28,10 +28,11 @@ def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
 
     mask: optional [b, t_kv] key-validity mask (1=attend).
 
-    Eligible calls (see ``flash_attention.flash_available``) go to the
-    flash path: the hand-written CUDA kernel on the card, its plain
-    blockwise version on the CPU. ``DL4JTPU_FLASH_ATTENTION=1`` forces it
-    on, ``0`` forces this dense path."""
+    Calls that ``flash_attention.flash_available`` routes there go to the
+    flash path: the hand-written CUDA kernels on the card (under auto only
+    what they take), its plain blockwise version on the CPU.
+    ``DL4JTPU_FLASH_ATTENTION=1`` forces it on, ``0`` forces this dense
+    path."""
     from .flash_attention import flash_attention, flash_available
     if q.ndim == 4 and q.shape == k.shape == v.shape \
             and flash_available(q, mask):
@@ -93,23 +94,26 @@ def _block_attend(q, k, v, m_prev, num_prev, den_prev, *, scale,
     return m_new, num, den
 
 
-def ring_flash_available(t_local: int, device=None) -> bool:
+def ring_flash_available(t_local: int, device, head_dim: int) -> bool:
     """Should the ring run its hops through the flash kernels?
 
     ``DL4JTPU_FLASH_ATTENTION=1`` forces the flash route (on the CPU its
-    entries run the kernels' plain versions), ``0`` forces the plain
-    online-softmax route; unset = auto, which is the flash route on CUDA
-    for every shard length (a shard that is not a multiple of 128 is
-    padded at its end under the key mask) and the plain route on the
-    CPU. (The JAX package's auto rule, t_local ≥ 1024 on a TPU, was set
-    on a TPU and does not carry over.)"""
+    entries run the kernels' plain versions; on the card a head dim the
+    kernels do not take raises), ``0`` forces the plain online-softmax
+    route; unset = auto, which is the flash route on CUDA when the kernels
+    take the hops and the plain route otherwise. The hops run in f32 and
+    a shard that is not a multiple of 128 is padded at its end under the
+    key mask, so only the head dim decides (64 or 128). (The JAX
+    package's auto rule, t_local ≥ 1024 on a TPU, was set on a TPU and
+    does not carry over.)"""
+    from .flash_attention import HEAD_DIMS
     del t_local
     flag = os.environ.get("DL4JTPU_FLASH_ATTENTION", "auto")
     if flag == "0":
         return False
     if flag == "1":
         return True
-    return device is not None and torch.device(device).type == "cuda"
+    return torch.device(device).type == "cuda" and head_dim in HEAD_DIMS
 
 
 # --------------------------------------------------------------------------
@@ -309,7 +313,8 @@ def ring_attention(q, k, v, *, group, causal: bool = False,
     backward; ``"jax"`` (the JAX package's name for it) the plain
     online-softmax block; None routes by :func:`ring_flash_available`."""
     if impl is None:
-        impl = "flash" if ring_flash_available(q.shape[1], q.device) else "jax"
+        impl = ("flash" if ring_flash_available(q.shape[1], q.device,
+                                                q.shape[-1]) else "jax")
     if impl == "flash":
         return _ring_flash_attention(q, k, v, mask, group=group,
                                      causal=causal, scale=scale)

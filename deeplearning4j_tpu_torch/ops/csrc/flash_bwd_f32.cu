@@ -24,12 +24,7 @@
 // output tile and sums in a fixed order with no atomics: two launches give
 // the same bits.
 //
-// Precision: 3xTF32. Each f32 operand x is split into hi = rna_tf32(x) and
-// lo = rna_tf32(x - hi) (round to nearest, ties away, for both), and each
-// product A B is summed in f32 as lo(A) hi(B) + hi(A) lo(B), then
-// hi(A) hi(B) (the small terms first). The dropped lo lo term and lo's own
-// rounding leave about 3 * 2^-22 of |A| |B| per product, near f32's 2^-24
-// and far from plain TF32's 2^-11.
+// Precision: 3xTF32 (tf32.cuh, shared with flash_fwd_f32.cu).
 //
 // Bound at [8, 2048, 12, 64] causal (b*h*t*(t+1)/2 = 201M attended pairs):
 // dq does S, dP and dS K, 6 d FLOPs a pair, 77.3 GFLOP; dk/dv 8 d, 103.1
@@ -40,19 +35,12 @@
 // pre-pass reads 4 and writes 14 tensors of 50 MB: 0.27 ms at 3.35 TB/s,
 // bandwidth-bound.
 //
-// Layouts. tf32 wgmma reads both shared-memory operands K-major (reduction
-// index contiguous). S = Q K^T and dP = dO V^T read Q, K, dO and V as they
-// are stored (d contiguous), but dq = dS K, dk = dS^T Q and dv = P^T dO
+// Layouts (tf32.cuh). S = Q K^T and dP = dO V^T read Q, K, dO and V as
+// they are stored (d contiguous), but dq = dS K, dk = dS^T Q and dv = P^T dO
 // reduce over keys or queries, so they need K, Q and dO transposed. The
 // pre-pass writes, per (b, h), planes of t x d floats: hi and lo of q, k,
-// v, dO row by row ([t][d]), and hi and lo of q, k, dO transposed ([d][t]).
-// The register A operand (P or dS, from an accumulator) is the other half
-// of the layout problem: the accumulator gives thread t4 the columns 2 t4
-// and 2 t4 + 1 of each 8-column group, the tf32 A fragment wants k = t4 and
-// t4 + 4. Rather than shuffle, the kernels pass the accumulator's values
-// as they are and the pre-pass stores the transposed planes' t index
-// permuted within each group of 8, so that k slot p holds row 2p (p < 4) or
-// 2(p - 4) + 1: the reduction pairs the same terms.
+// v, dO row by row ([t][d]), and hi and lo of q, k, dO transposed ([d][t],
+// t permuted within groups of 8 for the register A operand).
 //
 // Design (d = 64 or 128). A block is 384 threads: two consumer warpgroups
 // (232 registers a thread, setmaxnreg) and a producer warpgroup whose first
@@ -77,7 +65,8 @@
 //     each tile (N = 32 or 16) and keeps its own output accumulator in
 //     registers. At the end warpgroup 1 stages its partial in shared memory
 //     and warpgroup 0 adds it (a fixed order) and writes the tile.
-//   * S and dP: m64nNk8 wgmma, both operands from shared memory; P from
+//   * S and dP: m64nNk8 wgmma, both operands from shared memory, S summed
+//     in SK = 4 parts of d as the forward's (product_ss_parts); P from
 //     lse with expf, dS in f32; the mask, causal and dead-row predicates run
 //     only on diagonal tiles or under a key mask. P and dS are split into
 //     hi/lo tf32 fragments in registers (cvt.rna) and are the register A
@@ -88,18 +77,22 @@
 
 #include <math.h>
 
-#include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 using namespace hopper;
 
 constexpr float HALF_NEG = -5e29f;   // NEG_INF / 2, NEG_INF = -1e30
-constexpr int R = 64;                // stationary rows per block
 
 // planes of the scratch buffer: (tensor, part) -> 2 * tensor + part, each
 // [b*h][t * d] floats
 enum Plane { Q = 0, K = 1, V = 2, O = 3, QT = 4, KT = 5, OT = 6, PLANES = 14 };
+
+// parts of d that S is summed in (tf32.cuh, product_ss_parts; the same as
+// the forward's, flash_fwd_f32.cu, so that P = exp(S scale - lse) meets
+// the S that lse was taken from)
+constexpr int SK = 4;
 
 struct F32Params {
   const float* mask;    // [b, t] or nullptr (every key valid)
@@ -121,111 +114,6 @@ struct Geom {
   static constexpr int T64 = R * D * 4;   // one 64-row plane tile
   static constexpr int TC = C * D * 4;    // one C-row (or d x C) plane tile
 };
-
-__device__ __forceinline__ int plane_z(int tensor, int part, int bh, int bhs) {
-  return (2 * tensor + part) * bhs + bh;
-}
-
-// the rows [r0, r0 + n) of the plane (tensor, part) of head bh into a tile
-// of n rows, one TMA box per 32-column chunk
-template <int D>
-__device__ __forceinline__ void load_plane_rows(uint32_t dst,
-                                                const CUtensorMap* map, int n,
-                                                int r0, int z, uint32_t bar) {
-#pragma unroll
-  for (int c = 0; c < D / 32; ++c)
-    tma_load_3d(dst + c * n * 128, map, c * 32, r0, z, bar);
-}
-
-// the transposed plane's columns [c0, c0 + C) (all D rows) into a tile of
-// D rows, one box per 32 columns
-template <int D, int C>
-__device__ __forceinline__ void load_plane_cols(uint32_t dst,
-                                                const CUtensorMap* map, int c0,
-                                                int z, uint32_t bar) {
-#pragma unroll
-  for (int c = 0; c < C / 32; ++c)
-    tma_load_3d(dst + c * D * 128, map, c0 + c * 32, 0, z, bar);
-}
-
-// A fragment of k step kc from an accumulator of N columns, the values
-// split into tf32 hi and lo. The fragment's k slots t4 and t4 + 4 take the
-// accumulator's columns 2 t4 and 2 t4 + 1 (the pre-pass's permutation).
-template <int N>
-__device__ __forceinline__ void split_frags(uint32_t (*hi)[4],
-                                            uint32_t (*lo)[4],
-                                            const float* acc) {
-#pragma unroll
-  for (int kc = 0; kc < N / 8; ++kc) {
-    const float v[4] = {acc[4 * kc], acc[4 * kc + 2], acc[4 * kc + 1],
-                        acc[4 * kc + 3]};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      hi[kc][i] = tf32_rna(v[i]);
-      lo[kc][i] = tf32_rna(v[i] - __uint_as_float(hi[kc][i]));
-    }
-  }
-}
-
-// acc (64 x N) = A B^T over D columns in 3xTF32, A (64 rows) and B (N rows
-// of a tile whose 32-column chunks are `b_rows` rows apart) K-major.
-template <int D, int N>
-__device__ __forceinline__ void product_ss(float* acc, uint32_t a_hi,
-                                           uint32_t a_lo, uint32_t b_hi,
-                                           uint32_t b_lo, int b_rows) {
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk)
-    WgmmaTf32<N>::ss(acc, kmajor_desc(a_lo, R, kk),
-                     kmajor_desc(b_hi, b_rows, kk), kk > 0);
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk)
-    WgmmaTf32<N>::ss(acc, kmajor_desc(a_hi, R, kk),
-                     kmajor_desc(b_lo, b_rows, kk), 1);
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk)
-    WgmmaTf32<N>::ss(acc, kmajor_desc(a_hi, R, kk),
-                     kmajor_desc(b_hi, b_rows, kk), 1);
-}
-
-// acc (64 x D) += A B in 3xTF32, A the register fragments of this
-// warpgroup's N streamed rows (k steps k0/8 ..), B a transposed tile of D
-// rows (32-column chunks D rows apart). Each 64-column part of the
-// product is taken alone into a fresh accumulator and added to acc with
-// FADD. The tensor cores do not round their accumulator to nearest, so
-// hundreds of tiles summed in it drift one way (a causal key's first
-// tiles are large, its later ones small); a tile's own sum is short.
-template <int D, int N>
-__device__ __forceinline__ void product_rs(float* acc, uint32_t (*a_hi)[4],
-                                           uint32_t (*a_lo)[4], uint32_t b_hi,
-                                           uint32_t b_lo, int k0) {
-  fence_regs<N / 2>(&a_hi[0][0]);
-  fence_regs<N / 2>(&a_lo[0][0]);
-#pragma unroll
-  for (int c = 0; c < D / 64; ++c) {
-    const uint32_t bh = b_hi + c * 64 * 128, bl = b_lo + c * 64 * 128;
-    float part[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) part[i] = 0.f;
-    fence_regs<32>(part);
-    wgmma_fence();
-#pragma unroll
-    for (int kc = 0; kc < N / 8; ++kc) {
-      wgmma_tf32_rs_n64(part, a_lo[kc], kmajor_desc(bh, D, k0 / 8 + kc),
-                        kc > 0);
-      wgmma_tf32_rs_n64(part, a_hi[kc], kmajor_desc(bl, D, k0 / 8 + kc), 1);
-    }
-#pragma unroll
-    for (int kc = 0; kc < N / 8; ++kc)
-      wgmma_tf32_rs_n64(part, a_hi[kc], kmajor_desc(bh, D, k0 / 8 + kc), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs<32>(part);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[32 * c + i] += part[i];
-  }
-  fence_regs<N / 2>(&a_hi[0][0]);
-  fence_regs<N / 2>(&a_lo[0][0]);
-}
 
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 3, 256;\n" ::: "memory");
@@ -271,67 +159,12 @@ __device__ __forceinline__ void reduce_store(float* acc, uint32_t scratch,
 // pre-pass: tf32 splits and transposed copies
 // ---------------------------------------------------------------------------
 
-constexpr int SPLIT_ROWS = 32;
-constexpr int SPLIT_THREADS = 256;
-
-struct SplitParams {
-  const float* x[4];          // q, k, v, dO: [b, t, h, d] strided views
-  long long sb[4], st[4], sh[4];
-  float* split;               // [PLANES][b*h][t * d]
-  int b, t, h;
-};
-
-// the t index a transposed plane stores at position u of a group of 8
-__device__ __forceinline__ int permuted(int u) {
-  const int p = u & 7;
-  return (u & ~7) + (p < 4 ? 2 * p : 2 * (p - 4) + 1);
-}
-
-// One block per (b*h, 32 rows, tensor): 16-byte loads of the rows, hi and
-// lo written row by row, and, for q, k and dO, through shared memory to the
-// transposed planes, 32 consecutive t per warp store.
+// One block per (b*h, 32 rows, tensor): q, k, v and dO row by row, and q,
+// k and dO transposed (tf32.cuh).
 template <int D>
 __global__ void __launch_bounds__(SPLIT_THREADS)
 flash_bwd_split_f32_kernel(SplitParams p) {
-  __shared__ float hs[SPLIT_ROWS][D + 1], ls[SPLIT_ROWS][D + 1];
-  const int bh = blockIdx.x, r0 = (int)blockIdx.y * SPLIT_ROWS;
-  const int x = blockIdx.z;
-  const int bi = bh / p.h, hi = bh % p.h;
-  const long long bhs = (long long)p.b * p.h, plane = (long long)p.t * D;
-  const float* src = p.x[x] + bi * p.sb[x] + hi * p.sh[x];
-  float* rh = p.split + (2 * x * bhs + bh) * plane;
-  float* rl = p.split + ((2 * x + 1) * bhs + bh) * plane;
-  const bool transposed = x != V;
-  for (int i = threadIdx.x; i < SPLIT_ROWS * D / 4; i += SPLIT_THREADS) {
-    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-    const float4 v = __ldg(reinterpret_cast<const float4*>(
-        src + (long long)(r0 + r) * p.st[x] + c));
-    const float in[4] = {v.x, v.y, v.z, v.w};
-    float h4[4], l4[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      h4[e] = __uint_as_float(tf32_rna(in[e]));
-      l4[e] = __uint_as_float(tf32_rna(in[e] - h4[e]));
-      if (transposed) {
-        hs[r][c + e] = h4[e];
-        ls[r][c + e] = l4[e];
-      }
-    }
-    const long long at = (long long)(r0 + r) * D + c;
-    *reinterpret_cast<float4*>(rh + at) = make_float4(h4[0], h4[1], h4[2], h4[3]);
-    *reinterpret_cast<float4*>(rl + at) = make_float4(l4[0], l4[1], l4[2], l4[3]);
-  }
-  if (!transposed) return;   // uniform over the block
-  __syncthreads();
-  const int tx = x == Q ? QT : x == K ? KT : OT;
-  float* th = p.split + (2 * tx * bhs + bh) * plane;
-  float* tl = p.split + ((2 * tx + 1) * bhs + bh) * plane;
-  for (int i = threadIdx.x; i < D * SPLIT_ROWS; i += SPLIT_THREADS) {
-    const int d = i / SPLIT_ROWS, u = i % SPLIT_ROWS;
-    const int r = permuted(u);
-    th[(long long)d * p.t + r0 + u] = hs[r][d];
-    tl[(long long)d * p.t + r0 + u] = ls[r][d];
-  }
+  split_rows<D>(p);
 }
 
 // ---------------------------------------------------------------------------
@@ -421,23 +254,20 @@ __device__ __forceinline__ void dq_consume(uint32_t base,
     const uint32_t slot_b = base + L::SLOT0 + sb * L::SLOT;
     const int kw0 = i * G::C + wg * N;   // this warpgroup's first key
     mbar_wait(bar.full + 8 * sa, (na / G::SLOTS) & 1);
-    float sacc[N / 2], pacc[N / 2];
+    float sacc[N / 2], pacc[N / 2], tacc[N / 2];
+    // S = Q K^T over this warpgroup's N keys (waited for), then dP = dO V^T
+    // issued
+    product_ss_parts<D, N, SK>(sacc, tacc, base + L::QH, base + L::QL,
+                               slot_a + L::KH + wg * N * 128,
+                               slot_a + L::KL + wg * N * 128, G::C);
 #pragma unroll
-    for (int j = 0; j < N / 2; ++j) sacc[j] = pacc[j] = 0.f;
-    fence_regs<N / 2>(sacc);
+    for (int j = 0; j < N / 2; ++j) pacc[j] = 0.f;
     fence_regs<N / 2>(pacc);
-    // S = Q K^T and dP = dO V^T over this warpgroup's N keys
     wgmma_fence();
-    product_ss<D, N>(sacc, base + L::QH, base + L::QL,
-                     slot_a + L::KH + wg * N * 128,
-                     slot_a + L::KL + wg * N * 128, G::C);
-    wgmma_commit();
     product_ss<D, N>(pacc, base + L::OH, base + L::OL,
                      slot_a + L::VH + wg * N * 128,
                      slot_a + L::VL + wg * N * 128, G::C);
     wgmma_commit();
-    wgmma_wait<1>();   // S is done; dP may still run
-    fence_regs<N / 2>(sacc);
     if (mg != nullptr || (p.causal && kw0 + N - 1 > q0)) {
 #pragma unroll
       for (int j = 0; j < N / 8; ++j)
@@ -601,23 +431,20 @@ __device__ __forceinline__ void dkv_consume(uint32_t base,
     const uint32_t slot_b = base + L::SLOT0 + sb * L::SLOT;
     const int qw0 = q_start + i * G::C + wg * N;   // this warpgroup's queries
     mbar_wait(bar.full + 8 * sa, (na / G::SLOTS) & 1);
-    float sacc[N / 2], pacc[N / 2];
+    float sacc[N / 2], pacc[N / 2], tacc[N / 2];
+    // S^T = K Q^T, 64 keys x N queries (waited for), then dP^T = V dO^T
+    // issued
+    product_ss_parts<D, N, SK>(sacc, tacc, base + L::KH, base + L::KL,
+                               slot_a + L::QH + wg * N * 128,
+                               slot_a + L::QL + wg * N * 128, G::C);
 #pragma unroll
-    for (int j = 0; j < N / 2; ++j) sacc[j] = pacc[j] = 0.f;
-    fence_regs<N / 2>(sacc);
+    for (int j = 0; j < N / 2; ++j) pacc[j] = 0.f;
     fence_regs<N / 2>(pacc);
-    // S^T = K Q^T and dP^T = V dO^T, 64 keys x N queries
     wgmma_fence();
-    product_ss<D, N>(sacc, base + L::KH, base + L::KL,
-                     slot_a + L::QH + wg * N * 128,
-                     slot_a + L::QL + wg * N * 128, G::C);
-    wgmma_commit();
     product_ss<D, N>(pacc, base + L::VH, base + L::VL,
                      slot_a + L::OH + wg * N * 128,
                      slot_a + L::OL + wg * N * 128, G::C);
     wgmma_commit();
-    wgmma_wait<1>();   // S^T is done; dP^T may still run
-    fence_regs<N / 2>(sacc);
     const uint32_t lse_at = slot_a + L::LSE + wg * N * 4;
     const bool pred = p.mask != nullptr || (p.causal && qw0 < k0 + R - 1);
 #pragma unroll
@@ -718,11 +545,9 @@ cudaError_t launch_tf32(Kernel kernel, int d, int c, size_t smem,
       (reinterpret_cast<uintptr_t>(p.delta) & 15) ||
       (reinterpret_cast<uintptr_t>(split) & 15))
     return cudaErrorInvalidValue;
-  const long long planes = (long long)PLANES * p.b * p.h;
   CUtensorMap tr, tc, tt;
-  if (!encode_f32_3d(&tr, split, d, p.t, planes, R) ||
-      !encode_f32_3d(&tc, split, d, p.t, planes, c) ||
-      !encode_f32_3d(&tt, split, p.t, d, planes, d))
+  if (!encode_planes(&tr, &tc, &tt, split, d, p.t,
+                     (long long)PLANES * p.b * p.h, R, c))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -760,14 +585,13 @@ extern "C" int flash_bwd_split_f32(int d, const float* q, const float* k,
                 {q_sb, k_sb, v_sb, o_sb},
                 {q_st, k_st, v_st, o_st},
                 {q_sh, k_sh, v_sh, o_sh},
+                {Q, K, V, O},
+                {QT, KT, -1, OT},
                 split, b, t, h};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(b * h, t / SPLIT_ROWS, 4);
-  if (d == 64)
-    flash_bwd_split_f32_kernel<64><<<grid, SPLIT_THREADS, 0, st>>>(p);
-  else
-    flash_bwd_split_f32_kernel<128><<<grid, SPLIT_THREADS, 0, st>>>(p);
-  return (int)cudaGetLastError();
+  return (int)(d == 64 ? launch_split(flash_bwd_split_f32_kernel<64>, p, 4, st)
+                       : launch_split(flash_bwd_split_f32_kernel<128>, p, 4,
+                                      st));
 }
 
 extern "C" int flash_bwd_dq_f32(int d, const float* split, const float* mask,

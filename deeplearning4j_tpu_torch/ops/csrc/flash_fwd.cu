@@ -1,5 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), bound through a plain C
-// interface (ctypes).
+// Flash-attention forward in bf16 for Hopper (sm_90a), bound through a
+// plain C interface (ctypes). Its f32 instance is flash_fwd_f32.cu.
 //
 // Replaces the two Pallas TPU forward kernels of the JAX package,
 // deeplearning4j_tpu/ops/flash_attention.py: _fwd_kernel_vmem (whole K/V in
@@ -10,7 +10,7 @@
 //
 // Computes, for q/k/v [b, t, h, d] (strided views: the head dim must be
 // contiguous) and an optional [b, t] f32 key mask (key valid iff > 0):
-//   out [b, t, h, d] in the input dtype, lse [b, h, t] f32
+//   out [b, t, h, d] bf16, lse [b, h, t] f32
 // with the reference's NEG_INF = -1e30 sentinel rules: a row with no
 // attendable key gets out exactly 0 and lse -1e30, and a masked key adds
 // exactly 0 (its P is set to 0, never taken as the exp of a sentinel).
@@ -68,10 +68,9 @@
 //     Q rows (which no wgmma reads any more) and written with 16-byte
 //     stores; lse = (m + log2 l) * ln 2 in f32. Each block owns its tile,
 //     so the output is bitwise deterministic.
-// The f32 kernel (one thread per query row on the CUDA cores, fp32 FMA, no
-// TF32) keeps full f32 precision. It serves every f32 attention call on the
-// card and every hop of the ring (which runs in f32); it awaits its
-// redesign for Hopper (the f32 backward is 3xTF32 wgmma, flash_bwd_f32.cu).
+// Every f32 attention call on the card and every hop of the ring (which
+// runs in f32) goes to flash_fwd_f32.cu: 3xTF32 wgmma fed by TMA, as the
+// f32 backward (flash_bwd_f32.cu).
 
 #include <math.h>   // INFINITY
 
@@ -82,7 +81,6 @@ namespace {
 using namespace hopper;
 
 constexpr float NEG_INF = -1e30f;
-constexpr float HALF_NEG = -5e29f;
 constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
@@ -90,7 +88,7 @@ struct Params {
   const void* k;
   const void* v;
   const float* mask;  // [b, t] or nullptr (every key valid)
-  void* out;          // [b, t, h, d] contiguous
+  void* out;          // [b, t, h, d] contiguous bf16
   float* lse;         // [b, h, t] contiguous
   long long q_sb, q_st, q_sh;
   long long k_sb, k_st, k_sh;
@@ -469,114 +467,11 @@ cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// f32: CUDA-core kernel, one thread per query row
-// ---------------------------------------------------------------------------
-
-constexpr int BQ32 = 64;  // query rows (threads) per block
-constexpr int BK32 = 32;  // keys per k tile
-
-template <int D>
-__global__ void __launch_bounds__(BQ32)
-flash_fwd_f32_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);  // [BQ32][D + 1]
-  float* Ks = Qs + BQ32 * (D + 1);                 // [BK32][D]
-  float* Vs = Ks + BK32 * D;                       // [BK32][D]
-
-  const int n_qt = p.t / BQ32;
-  const int qt = p.causal ? (n_qt - 1 - (int)blockIdx.y) : (int)blockIdx.y;
-  const int bh = blockIdx.x;
-  const int bi = bh / p.h;
-  const int hi = bh % p.h;
-  const int q0 = qt * BQ32;
-  const int tid = threadIdx.x;
-  const int row = q0 + tid;
-
-  const float* qg = static_cast<const float*>(p.q) + bi * p.q_sb + hi * p.q_sh;
-  const float* kg = static_cast<const float*>(p.k) + bi * p.k_sb + hi * p.k_sh;
-  const float* vg = static_cast<const float*>(p.v) + bi * p.v_sb + hi * p.v_sh;
-  const float* mg = p.mask ? p.mask + (long long)bi * p.t : nullptr;
-
-  for (int c = tid; c < BQ32 * D; c += BQ32) {
-    const int r = c / D, cc = c % D;
-    Qs[r * (D + 1) + cc] = qg[(q0 + r) * p.q_st + cc];
-  }
-
-  float o[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) o[i] = 0.f;
-  float m_run = NEG_INF, l_run = 0.f;
-
-  const int n_kt = p.causal ? (q0 + BQ32 + BK32 - 1) / BK32 : p.t / BK32;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK32;
-    __syncthreads();
-    for (int c = tid; c < BK32 * D; c += BQ32) {
-      const int r = c / D, cc = c % D;
-      Ks[c] = kg[(k0 + r) * p.k_st + cc];
-      Vs[c] = vg[(k0 + r) * p.v_st + cc];
-    }
-    __syncthreads();
-
-    float s[BK32];
-    float mx = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < BK32; ++j) {
-      float acc = 0.f;
-#pragma unroll 16
-      for (int i = 0; i < D; ++i) acc = fmaf(Qs[tid * (D + 1) + i], Ks[j * D + i], acc);
-      float x = acc * p.scale;
-      const int col = k0 + j;
-      if ((mg != nullptr && !(mg[col] > 0.f)) || (p.causal && col > row)) x = NEG_INF;
-      s[j] = x;
-      mx = fmaxf(mx, x);
-    }
-    const float m_new = fmaxf(m_run, mx);
-    const float m_safe = m_new <= HALF_NEG ? 0.f : m_new;
-    const float corr = m_run <= HALF_NEG ? 0.f : expf(m_run - m_safe);
-    m_run = m_new;
-    float rs = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK32; ++j) {
-      s[j] = s[j] <= HALF_NEG ? 0.f : expf(s[j] - m_safe);
-      rs += s[j];
-    }
-    l_run = l_run * corr + rs;
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      float acc = o[i] * corr;
-#pragma unroll
-      for (int j = 0; j < BK32; ++j) acc = fmaf(s[j], Vs[j * D + i], acc);
-      o[i] = acc;
-    }
-  }
-
-  const float inv = 1.f / fmaxf(l_run, 1e-30f);
-  float* orow = static_cast<float*>(p.out) + (((long long)bi * p.t + row) * p.h + hi) * D;
-#pragma unroll
-  for (int i = 0; i < D; ++i) orow[i] = o[i] * inv;
-  p.lse[(long long)bh * p.t + row] =
-      l_run > 0.f ? m_run + logf(fmaxf(l_run, 1e-30f)) : NEG_INF;
-}
-
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int threads, int rows_per_block,
-                   size_t smem, const Params& prm, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  // b*h on x (up to 2^31 - 1 blocks), q tiles on y (t / 64 <= 65535)
-  dim3 grid(prm.b * prm.h, prm.t / rows_per_block);
-  kernel<<<grid, threads, smem, stream>>>(prm);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns a
-// cudaError_t (0 = launched); the kernel runs on `stream` asynchronously.
-extern "C" int flash_fwd(int dtype, int d, const void* q, const void* k,
+// bf16 q, k, v; strides are in elements. Returns a cudaError_t (0 =
+// launched); the kernel runs on `stream` asynchronously.
+extern "C" int flash_fwd(int d, const void* q, const void* k,
                          const void* v, const float* mask, void* out,
                          float* lse, long long q_sb, long long q_st,
                          long long q_sh, long long k_sb, long long k_st,
@@ -586,20 +481,8 @@ extern "C" int flash_fwd(int dtype, int d, const void* q, const void* k,
   Params prm{q, k, v, mask, out, lse, q_sb, q_st, q_sh, k_sb, k_st, k_sh,
              v_sb, v_st, v_sh, b, t, h, scale, causal};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (t <= 0 || t % ROWS != 0 || t % BQ32 != 0 || t % BK32 != 0)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 1) {
-    if (d == 64) return (int)launch_bf16<64>(prm, st);
-    if (d == 128) return (int)launch_bf16<128>(prm, st);
-  } else if (dtype == 0) {
-    if (d == 64) {
-      constexpr size_t smem = (BQ32 * 65 + 2 * BK32 * 64) * 4;
-      return (int)launch(flash_fwd_f32_kernel<64>, BQ32, BQ32, smem, prm, st);
-    }
-    if (d == 128) {
-      constexpr size_t smem = (BQ32 * 129 + 2 * BK32 * 128) * 4;
-      return (int)launch(flash_fwd_f32_kernel<128>, BQ32, BQ32, smem, prm, st);
-    }
-  }
+  if (t <= 0 || t % ROWS != 0) return (int)cudaErrorInvalidValue;
+  if (d == 64) return (int)launch_bf16<64>(prm, st);
+  if (d == 128) return (int)launch_bf16<128>(prm, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) primitives shared by the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu, flash_bwd_f32.cu): shared-memory access,
+// (flash_fwd.cu, flash_bwd.cu, and through tf32.cuh flash_fwd_f32.cu and
+// flash_bwd_f32.cu): shared-memory access,
 // mbarriers, TMA loads and the host-side tensor maps they read through,
 // warpgroup wgmma (bf16 and tf32) with its shared-memory descriptors, the
 // register budgets of a warp-specialised block (setmaxnreg), and the layout
@@ -409,6 +410,24 @@ __device__ __forceinline__ void wgmma_tf32_ss_n32(float* d, uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// d (64 x 64, f32) (+)= A B, tf32 A and B from shared memory, K-major.
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float* d, uint64_t a,
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // d (64 x 64, f32) (+)= A B, A (64 x 8 tf32) from registers, B from shared
 // memory, K-major.
 __device__ __forceinline__ void wgmma_tf32_rs_n64(float* d, const uint32_t* a,
@@ -439,6 +458,12 @@ template <> struct WgmmaTf32<32> {
   static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
                                             int scale_d) {
     wgmma_tf32_ss_n32(d, a, b, scale_d);
+  }
+};
+template <> struct WgmmaTf32<64> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int scale_d) {
+    wgmma_tf32_ss_n64(d, a, b, scale_d);
   }
 };
 template <int N> struct Wgmma;

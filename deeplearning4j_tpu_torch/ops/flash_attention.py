@@ -21,19 +21,21 @@ give dk = dv = 0, exactly. The mask gets no gradient.
 * :func:`flash_attention_fwd_plain` / :func:`flash_attention_bwd_plain` —
   blockwise PyTorch mirrors of the reference tile math, in f32. The CPU
   path and the yardsticks the kernels are held against.
-* the CUDA kernels (``csrc/flash_fwd.cu``; ``csrc/flash_bwd.cu`` with the
-  Δ preprocess and the bf16 dq and fused dk/dv entries;
-  ``csrc/flash_bwd_f32.cu`` with the f32 pre-pass, dq and fused dk/dv
-  entries; bf16 or f32, d ∈ {64, 128}, ``t % 128 == 0``) — launched for
-  CUDA tensors; anything they do not take raises, there is no fallback.
-  The bf16 forward, dq and dk/dv kernels are wgmma kernels fed by TMA;
-  :func:`tma_layout` is the host-side layout of the tensor maps they read
-  q, k, v (and dO) through. The f32 dq and dk/dv kernels are 3xTF32 wgmma
-  kernels fed by TMA from the pre-pass's scratch (:func:`tf32_split`,
-  :func:`flash_bwd_split_plain`).
+* the CUDA kernels (``csrc/flash_fwd.cu``, the bf16 forward;
+  ``csrc/flash_fwd_f32.cu`` with the f32 forward's pre-pass and kernel;
+  ``csrc/flash_bwd.cu`` with the Δ preprocess and the bf16 dq and fused
+  dk/dv entries; ``csrc/flash_bwd_f32.cu`` with the f32 backward's
+  pre-pass, dq and fused dk/dv entries; bf16 or f32, d ∈ {64, 128},
+  ``t % 128 == 0``: :func:`kernels_take`) — launched for CUDA tensors;
+  anything they do not take raises, there is no fallback. The bf16
+  kernels are wgmma kernels fed by TMA; :func:`tma_layout` is the
+  host-side layout of the tensor maps they read q, k, v (and dO) through.
+  The f32 kernels are 3xTF32 wgmma kernels fed by TMA from their
+  pre-pass's scratch of tf32 splits (:func:`tf32_split`,
+  :func:`flash_fwd_split_plain`, :func:`flash_bwd_split_plain`).
 
 :func:`flash_attention_fwd` and :func:`flash_attention_bwd` pick by the
-tensors' device.
+tensors' device; :func:`flash_available` routes a call to them.
 """
 
 from __future__ import annotations
@@ -54,6 +56,8 @@ HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 FLASH_FWD = _nvcc.kernel("flash_fwd")
+FLASH_FWD_SPLIT_F32 = _nvcc.kernel("flash_fwd_split_f32", "flash_fwd_f32")
+FLASH_FWD_F32 = _nvcc.kernel("flash_fwd_f32", "flash_fwd_f32")
 FLASH_BWD_PREPROCESS = _nvcc.kernel("flash_bwd_preprocess", "flash_bwd")
 FLASH_BWD_DQ = _nvcc.kernel("flash_bwd_dq", "flash_bwd")
 FLASH_BWD_DKV = _nvcc.kernel("flash_bwd_dkv", "flash_bwd")
@@ -62,14 +66,16 @@ FLASH_BWD_DQ_F32 = _nvcc.kernel("flash_bwd_dq_f32", "flash_bwd_f32")
 FLASH_BWD_DKV_F32 = _nvcc.kernel("flash_bwd_dkv_f32", "flash_bwd_f32")
 
 _P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-# C signatures (csrc/*.cu): dtype and head dim, pointers, [b, t, h] strides,
-# sizes, scale, causal, stream
-_FWD_ARGS = [_I, _I] + [_P] * 6 + [_LL] * 9 + [_I] * 3 + [_F, _I, _P]
+# C signatures (csrc/*.cu): dtype (not for the bf16-only forward) and head
+# dim, pointers, [b, t, h] strides, sizes, scale, causal, stream
+_FWD_ARGS = [_I] + [_P] * 6 + [_LL] * 9 + [_I] * 3 + [_F, _I, _P]
 _PRE_ARGS = [_I, _I, _P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P, _I, _I, _I, _P]
 _DQ_ARGS = [_I, _I] + [_P] * 8 + [_LL] * 12 + [_I] * 3 + [_F, _I, _P]
 _DKV_ARGS = [_I, _I] + [_P] * 9 + [_LL] * 12 + [_I] * 3 + [_F, _I, _P]
-# the f32 entries (csrc/flash_bwd_f32.cu): head dim, pointers (the scratch
-# of splits first), sizes, scale, causal, stream
+# the f32 entries (csrc/flash_fwd_f32.cu, csrc/flash_bwd_f32.cu): head dim,
+# pointers (the scratch of splits first), sizes, scale, causal, stream
+_FSPLIT_ARGS = [_I] + [_P] * 3 + [_LL] * 9 + [_P] + [_I] * 3 + [_P]
+_FWD32_ARGS = [_I] + [_P] * 4 + [_I] * 3 + [_F, _I, _P]
 _SPLIT_ARGS = [_I] + [_P] * 4 + [_LL] * 12 + [_P] + [_I] * 3 + [_P]
 _DQ32_ARGS = [_I] + [_P] * 5 + [_I] * 3 + [_F, _I, _P]
 _DKV32_ARGS = [_I] + [_P] * 6 + [_I] * 3 + [_F, _I, _P]
@@ -152,10 +158,12 @@ def flash_bwd_preprocess_plain(out, dout) -> torch.Tensor:
 
 
 # The f32 kernels' pre-pass scratch: for each (b, h), planes of t·d floats,
-# the tf32 hi and lo of q, k, v and dO row by row ([t][d]) and of q, k and
-# dO transposed ([d][t], t permuted within each group of 8 as the kernels'
-# register operands need: position p holds row 2p for p < 4, 2(p − 4) + 1
-# for p ≥ 4). Plane order: (q, k, v, dO, qᵀ, kᵀ, dOᵀ) × (hi, lo).
+# the tf32 hi and lo of a tensor row by row ([t][d]) or transposed ([d][t],
+# t permuted within each group of 8 as the kernels' register operands
+# need: position p holds row 2p for p < 4, 2(p − 4) + 1 for p ≥ 4). Plane
+# order: the forward's (q, k, vᵀ) × (hi, lo), the backward's (q, k, v, dO,
+# qᵀ, kᵀ, dOᵀ) × (hi, lo).
+FWD_SPLIT_TENSORS = 3
 SPLIT_TENSORS = 7
 _SPLIT_PERM = (0, 2, 4, 6, 1, 3, 5, 7)
 
@@ -172,17 +180,32 @@ def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, rna(x.float() - hi)
 
 
-def flash_bwd_split_plain(q, k, v, dout) -> torch.Tensor:
-    """The f32 pre-pass's scratch ``[7, 2, b·h, t·d]`` (see
-    ``SPLIT_TENSORS``) from [b, t, h, d] views, in plain PyTorch."""
-    b, t, h, d = q.shape
-    rows = [x.float().permute(0, 2, 1, 3).reshape(b * h, t, d)
-            for x in (q, k, v, dout)]
-    perm = (torch.arange(t, device=q.device).view(-1, 8)[
+def _split_scratch(rows, cols) -> torch.Tensor:
+    """``[len(rows) + len(cols), 2, b·h, t·d]``: the hi and lo planes of
+    the [b, t, h, d] tensors ``rows`` row by row, then of ``cols``
+    transposed (t permuted within groups of 8)."""
+    b, t, h, d = rows[0].shape
+
+    def planes(x):
+        return x.float().permute(0, 2, 1, 3).reshape(b * h, t, d)
+    perm = (torch.arange(t, device=rows[0].device).view(-1, 8)[
         :, list(_SPLIT_PERM)].reshape(-1))
-    cols = [r[:, perm].transpose(1, 2) for r in (rows[0], rows[1], rows[3])]
+    xs = ([planes(x) for x in rows]
+          + [planes(x)[:, perm].transpose(1, 2) for x in cols])
     return torch.stack([torch.stack(tf32_split(x)).reshape(2, b * h, t * d)
-                        for x in rows + cols])
+                        for x in xs])
+
+
+def flash_fwd_split_plain(q, k, v) -> torch.Tensor:
+    """The f32 forward pre-pass's scratch ``[3, 2, b·h, t·d]`` (see
+    ``FWD_SPLIT_TENSORS``) from [b, t, h, d] views, in plain PyTorch."""
+    return _split_scratch([q, k], [v])
+
+
+def flash_bwd_split_plain(q, k, v, dout) -> torch.Tensor:
+    """The f32 backward pre-pass's scratch ``[7, 2, b·h, t·d]`` (see
+    ``SPLIT_TENSORS``) from [b, t, h, d] views, in plain PyTorch."""
+    return _split_scratch([q, k, v, dout], [q, k, dout])
 
 
 def _bwd_blocks(q, k, v, mask, out, lse, dout, causal: bool, scale: float,
@@ -254,10 +277,20 @@ def flash_attention_bwd_plain(q, k, v, mask, out, lse, dout, *,
 # --------------------------------------------------------------------------
 
 
+def kernels_take(dtype, shape, mask_shape=None) -> bool:
+    """Do the kernels take a call on [b, t, h, d] = ``shape`` q/k/v of
+    ``dtype`` with a key mask of ``mask_shape`` (None: no mask)? bf16 or
+    f32, head dim 64 or 128, ``t % 128 == 0`` and no mask or a [b, t] one.
+    A pure rule of the call's types and shapes: :func:`flash_available`
+    routes by it before any launch."""
+    b, t, _, d = shape
+    return (dtype in KERNEL_DTYPES and d in HEAD_DIMS and t % BLOCK == 0
+            and (mask_shape is None or tuple(mask_shape) == (b, t)))
+
+
 def _check_kernel_inputs(q, named):
-    """What the kernels take: bf16 or f32, d 64 or 128, t % 128 == 0, and
-    16-byte aligned rows with a contiguous head dim (16-byte vector loads
-    on the bf16 path)."""
+    """What the kernels take (:func:`kernels_take`), and 16-byte aligned
+    rows with a contiguous head dim (TMA and 16-byte vector loads)."""
     b, t, h, d = q.shape
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"flash kernel takes bf16 or f32, got {q.dtype}")
@@ -363,10 +396,27 @@ def _flops(per_pair: int, b: int, h: int, t: int, d: int,
     return float(per_pair * b * h * d * attention_pairs(t, causal))
 
 
+def _flash_fwd_split_cuda(q, k, v):
+    """The f32 forward's scratch ``[3, 2, b·h, t·d]`` from its pre-pass
+    kernel (what :func:`flash_fwd_split_plain` computes)."""
+    b, t, h, d = q.shape
+    split = torch.empty((FWD_SPLIT_TENSORS, 2, b * h, t * d),
+                        dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _launched(FLASH_FWD_SPLIT_F32, FLASH_FWD_SPLIT_F32.fn(_FSPLIT_ARGS)(
+        d, q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], split.data_ptr(), b, t, h, stream))
+    return split
+
+
 def _flash_fwd_cuda(q, k, v, mask, causal: bool, scale: float):
+    """(out, lse) from the forward kernels: bf16 reads q, k and v through
+    TMA in place; f32 runs the pre-pass of tf32 splits, then the 3xTF32
+    kernel on its scratch."""
     b, t, h, d = q.shape
     _check_kernel_inputs(q, (("q", q), ("k", k), ("v", v)))
-    if q.dtype == torch.bfloat16:   # the wgmma kernel loads through TMA
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:   # the wgmma kernel loads through TMA
         for name, x in (("q", q), ("k", k), ("v", v)):
             tma_layout(x, name)
         if not scale > 0:
@@ -377,14 +427,20 @@ def _flash_fwd_cuda(q, k, v, mask, causal: bool, scale: float):
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if lse.data_ptr() % 16:
         raise ValueError("flash forward needs a 16-byte aligned lse")
+    flops = _flops(FWD_FLOPS_PER_PAIR, b, h, t, d, causal)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    if not bf16:
+        split = _flash_fwd_split_cuda(q, k, v)
+        _launched(FLASH_FWD_F32, FLASH_FWD_F32.fn(_FWD32_ARGS)(
+            d, split.data_ptr(), _ptr(mask), out.data_ptr(), lse.data_ptr(),
+            b, t, h, float(scale), int(bool(causal)), stream), flops)
+        return out, lse
     err = FLASH_FWD.fn(_FWD_ARGS)(
-        1 if q.dtype == torch.bfloat16 else 0, d,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+        d, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
         out.data_ptr(), lse.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         b, t, h, float(scale), int(bool(causal)), stream)
-    _launched(FLASH_FWD, err, _flops(FWD_FLOPS_PER_PAIR, b, h, t, d, causal))
+    _launched(FLASH_FWD, err, flops)
     return out, lse
 
 
@@ -708,15 +764,20 @@ def flash_available(q, mask) -> bool:
     query tensor (k/v equal-shaped, checked by the caller).
 
     ``DL4JTPU_FLASH_ATTENTION``: ``1`` forces flash on, ``0`` off; unset =
-    auto, which is on for every eligible call on CUDA and off on the CPU.
-    Eligible, as in the reference: ``t % 128 == 0`` and a mask that is None
-    or [b, t]. A head dim or dtype the CUDA kernel does not take then
-    raises there. (The reference's auto threshold of t ≥ 4096 was measured
-    on a TPU and does not carry over.)"""
+    auto. Eligible, as in the reference: ``t % 128 == 0`` and a mask that
+    is None or [b, t]. Forced on, every eligible call takes the flash path,
+    and a head dim or dtype the CUDA kernels do not take raises there.
+    Auto is on for a CUDA call that the kernels take (:func:`kernels_take`)
+    and off for every other call, which the dense path serves (the
+    reference's auto rule sends such a call to XLA; its threshold of
+    t ≥ 4096 was measured on a TPU and does not carry over)."""
     flag = os.environ.get("DL4JTPU_FLASH_ATTENTION", "auto")
     b, t = q.shape[:2]
     if flag == "0" or t % BLOCK:
         return False
     if mask is not None and tuple(mask.shape) != (b, t):
         return False
-    return flag == "1" or q.device.type == "cuda"
+    if flag == "1":
+        return True
+    return q.device.type == "cuda" and kernels_take(
+        q.dtype, q.shape, None if mask is None else mask.shape)

@@ -135,7 +135,7 @@ def launcher(fn, q, k, v):
     b, t, h, d = q.shape
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    args = (1, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+    args = (d, q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
             out.data_ptr(), lse.data_ptr(), *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], b, t, h, 1.0 / d ** 0.5, 1)
 

@@ -312,6 +312,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _fwd_kernel(dtype):
+    """The forward kernel a call in ``dtype`` launches: the bf16 kernel,
+    or the f32 (3xTF32) one after its pre-pass."""
+    return tfa.FLASH_FWD if dtype == torch.bfloat16 else tfa.FLASH_FWD_F32
+
+
 @pytest.mark.cuda
 def test_cuda_wrapper_takes_inputs_that_need_grad(cuda_device):
     """The kernel forward builds an autograd graph when its inputs need a
@@ -334,9 +340,10 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype):
     q, k, v, mask = (torch.from_numpy(a).to(cuda_device)
                      for a in _inputs(64, "padded", seed=5))
     q, k, v = (x.to(dtype) for x in (q, k, v))
-    before = tfa.FLASH_FWD.launches
+    kernel = _fwd_kernel(dtype)
+    before = kernel.launches
     out, lse = tfa.flash_attention_fwd(q, k, v, mask, causal=True)
-    assert tfa.FLASH_FWD.launches == before + 1
+    assert kernel.launches == before + 1
     ref_out, ref_lse = tfa.flash_attention_fwd_plain(q, k, v, mask, causal=True)
     err = (out.float() - ref_out.float()).abs()
     if dtype == torch.bfloat16:
@@ -399,10 +406,11 @@ def test_cuda_forward_kernel_matches_plain(cuda_device, t, d, dtype, causal,
     q, k, v, mask = _card_fwd_inputs(t, d, mask_kind, dtype, cuda_device,
                                      seed=7)
     assert not q.is_contiguous()
-    before = tfa.FLASH_FWD.launches
+    kernel = _fwd_kernel(dtype)
+    before = kernel.launches
     out, lse = tfa.flash_attention_fwd(q, k, v, mask, causal=causal)
     torch.cuda.synchronize()
-    assert tfa.FLASH_FWD.launches == before + 1
+    assert kernel.launches == before + 1
     assert out.dtype == dtype and lse.shape == (B, H, t)
     ref_out, ref_lse = tfa.flash_attention_fwd_plain(q, k, v, mask,
                                                      causal=causal)

@@ -223,12 +223,12 @@ def _virtual_flash_ring(q, k, v, g, mask, n, causal):
 
 def test_cpu_routes_plain_and_flag_forces_flash(monkeypatch):
     monkeypatch.delenv("DL4JTPU_FLASH_ATTENTION", raising=False)
-    assert not tattn.ring_flash_available(4, torch.device("cpu"))
-    assert tattn.ring_flash_available(4, torch.device("cuda"))
+    assert not tattn.ring_flash_available(4, torch.device("cpu"), 64)
+    assert tattn.ring_flash_available(4, torch.device("cuda"), 64)
     monkeypatch.setenv("DL4JTPU_FLASH_ATTENTION", "1")
-    assert tattn.ring_flash_available(4, torch.device("cpu"))
+    assert tattn.ring_flash_available(4, torch.device("cpu"), 64)
     monkeypatch.setenv("DL4JTPU_FLASH_ATTENTION", "0")
-    assert not tattn.ring_flash_available(4, torch.device("cuda"))
+    assert not tattn.ring_flash_available(4, torch.device("cuda"), 64)
 
 
 def test_a_failing_kernel_raises_and_never_falls_back(monkeypatch):
