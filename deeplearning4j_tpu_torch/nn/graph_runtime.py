@@ -57,6 +57,8 @@ from .. import losses as _losses
 from ..optimize import updaters as _updaters
 from ..optimize.listeners import as_listener_score
 from ..util import health as _health
+from ..util import ingest as _ingest
+from ..util import tracing as _tracing
 from .conf.graph import ComputationGraphConfiguration, LayerVertex
 from .conf.preprocessors import call_preprocessor
 from ..util.netutil import (checkpoint_segment, named_generator,
@@ -118,6 +120,9 @@ class ComputationGraph(torch.nn.Module):
         self._rnn_state: Optional[Dict[str, Dict[str, Any]]] = None
         self._rnn_steps_fed = 0
         self.listeners: List[Any] = []
+        # a util.tracing.Tracer: spans of fit's steps and their phases,
+        # and of the stager's copies; None = no spans
+        self.tracer: Optional[_tracing.Tracer] = None
         # training-health stats (util.health): None = off
         self.health_stats: Optional[_health.StatsConfig] = None
         self._last_health_stats: Optional[_health.DeviceStats] = None
@@ -791,8 +796,9 @@ class ComputationGraph(torch.nn.Module):
         gen = self._generator(f"update_{self._update_count}")
         new_states: Dict[str, Any] = {}
         states = self._states_map(rnn_state)
-        with (dp.loss_context() if dp is not None
-              else contextlib.nullcontext()):
+        with _tracing.phase("fit.forward_backward", self.tracer), (
+                dp.loss_context() if dp is not None
+                else contextlib.nullcontext()):
             if stats is None:
                 loss, grads_raw = self._loss_and_grads(
                     inputs, labels, masks, generator=gen,
@@ -810,13 +816,14 @@ class ComputationGraph(torch.nn.Module):
                 self._update_count += 1
                 self._last_rnn_carry = {}
                 return loss if stats is None else (loss, None)
-        grads = _updaters.normalize_gradients(
-            grads_raw, t.gradient_normalization,
-            float(t.gradient_normalization_threshold))
-        deltas, self.updater_state = self._updater.update(
-            grads, self.updater_state, self._update_count)
-        params = self.params
-        _updaters.apply_updates(params, deltas)
+        with _ingest.fit_phase("updater", self.tracer, "ComputationGraph"):
+            grads = _updaters.normalize_gradients(
+                grads_raw, t.gradient_normalization,
+                float(t.gradient_normalization_threshold))
+            deltas, self.updater_state = self._updater.update(
+                grads, self.updater_state, self._update_count)
+            params = self.params
+            _updaters.apply_updates(params, deltas)
         self._update_count += 1
         # the TBPTT boundary: the carry's values pass on, its graph does not
         self._last_rnn_carry = {

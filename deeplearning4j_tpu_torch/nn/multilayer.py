@@ -46,6 +46,8 @@ from .. import losses as _losses
 from ..optimize import updaters as _updaters
 from ..optimize.listeners import as_listener_score
 from ..util import health as _health
+from ..util import ingest as _ingest
+from ..util import tracing as _tracing
 from ..util.netutil import (checkpoint_segment, named_generator,
                              note_streamed_steps, precheck_streamed_steps)
 from .conf.multi_layer import MultiLayerConfiguration
@@ -94,6 +96,9 @@ class MultiLayerNetwork(torch.nn.Module):
         self.updater_state: Optional[Dict[str, Any]] = None
         self._updater: Optional[_updaters.Updater] = None
         self.listeners: List[Any] = []
+        # a util.tracing.Tracer: spans of fit's steps and their phases,
+        # and of the stager's copies; None = no spans
+        self.tracer: Optional[_tracing.Tracer] = None
         self.iteration_count = 0   # minibatches seen (listener-visible)
         self._update_count = 0     # parameter updates (TBPTT chunks too)
         self.epoch_count = 0
@@ -531,8 +536,9 @@ class MultiLayerNetwork(torch.nn.Module):
                                  "ParallelWrapper")
             x, y, mask = dp.shard(x, y, mask)
         gen = self._generator(f"update_{self._update_count}")
-        with (dp.loss_context() if dp is not None
-              else contextlib.nullcontext()):
+        with _tracing.phase("fit.forward_backward", self.tracer), (
+                dp.loss_context() if dp is not None
+                else contextlib.nullcontext()):
             loss, grads_raw, new_states, act_stats = self._loss_and_grads(
                 x, y, mask, states=self._states_list(rnn_state),
                 generator=gen, collect_stats=stats)
@@ -544,13 +550,14 @@ class MultiLayerNetwork(torch.nn.Module):
                 self._last_rnn_carry = []
                 self._score = loss
                 return loss
-        grads = _updaters.normalize_gradients(
-            grads_raw, t.gradient_normalization,
-            float(t.gradient_normalization_threshold))
-        deltas, self.updater_state = self._updater.update(
-            grads, self.updater_state, self._update_count)
-        params = self.params
-        _updaters.apply_updates(params, deltas)
+        with _ingest.fit_phase("updater", self.tracer, "MultiLayerNetwork"):
+            grads = _updaters.normalize_gradients(
+                grads_raw, t.gradient_normalization,
+                float(t.gradient_normalization_threshold))
+            deltas, self.updater_state = self._updater.update(
+                grads, self.updater_state, self._update_count)
+            params = self.params
+            _updaters.apply_updates(params, deltas)
         self._update_count += 1
         # the TBPTT boundary: the carry's values pass on, its graph does not
         self._last_rnn_carry = _detach_tree(self._extract_rnn_carry(new_states))

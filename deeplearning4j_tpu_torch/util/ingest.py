@@ -44,6 +44,7 @@ pipeline's counters, and the live measured FLOP rate and MFU.
 from __future__ import annotations
 
 import collections
+import contextlib
 import logging
 import os
 import queue
@@ -58,6 +59,7 @@ import torch
 from . import faults as _faults
 from . import flightrecorder as _flight
 from . import metrics as _metrics
+from . import tracing as _tracing
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
@@ -212,9 +214,32 @@ def _staged_counter(registry=None) -> _metrics.Counter:
 def host_gap_histogram(registry=None) -> _metrics.Histogram:
     return _reg(registry).histogram(
         "fit_host_gap_seconds",
-        "Host time between consecutive step dispatches in fit() (batch "
-        "fetch + listener work; device compute excluded)", ("model",),
+        "Host time fit() waits for its next (staged) batch between two "
+        "step dispatches: the fetch from the batch stream, the fit.batch_wait "
+        "phase (listeners fire inside the dispatch, not here)", ("model",),
         buckets=_GAP_BUCKETS)
+
+
+def phase_histogram(registry=None) -> _metrics.Histogram:
+    return _reg(registry).histogram(
+        "fit_phase_seconds",
+        "Host time of one phase of a training update: 'updater' from "
+        "gradient normalization through the parameters' update (one per "
+        "update), 'device_wait' fit() blocked on an earlier step's "
+        "completion (one per dispatch)", ("model", "phase"),
+        buckets=_GAP_BUCKETS)
+
+
+@contextlib.contextmanager
+def fit_phase(phase: str, tracer, model_label: str):
+    """The ``fit.<phase>`` phase (``util.tracing.phase``) and its
+    ``fit_phase_seconds{model, phase}`` observation, on the host clock
+    inside the phase's range."""
+    with _tracing.phase(f"fit.{phase}", tracer):
+        t0 = time.perf_counter()
+        yield
+        dt = time.perf_counter() - t0
+    phase_histogram().observe(dt, model=model_label, phase=phase)
 
 
 def records_read_counter(registry=None) -> _metrics.Counter:
@@ -487,7 +512,9 @@ class DeviceStager:
     event)``. ``adopt(batch, event)`` runs on the consumer: its current
     stream waits on the event and every staged tensor is
     ``record_stream``-ed onto it. On a CPU device the arrays only become
-    tensors and there is no event. Counts into the ingest metrics.
+    tensors and there is no event. Counts into the ingest metrics; each
+    copy is the ``ingest.stage`` phase (``util.tracing.phase``) on the
+    producer thread.
 
     ``_plant`` is a fault for tests of the staging gate: ``"no_record"``
     skips ``record_stream``, ``"no_wait"`` skips both waits.
@@ -520,9 +547,14 @@ class DeviceStager:
         if self._cuda and self._stream is None:
             torch.cuda.set_device(self.device)
             self._stream = torch.cuda.Stream(self.device)
-        span = (self.tracer.start("ingest.stage",
-                                  attributes={"stage": self.stage_name})
-                if self.tracer is not None else None)
+        with _tracing.phase("ingest.stage", self.tracer,
+                            {"stage": self.stage_name}) as span:
+            staged, event, host_bytes = self._copy(batch)
+            if span is not None:
+                span.attributes["bytes"] = host_bytes
+        return staged, event
+
+    def _copy(self, batch: Tuple):
         t0 = time.perf_counter()
         host: list = []
         skeleton = tuple(_collect(el, host) for el in batch)
@@ -557,10 +589,7 @@ class DeviceStager:
         if host_bytes:
             self._bytes.inc(host_bytes, stage=self.stage_name)
         self._staged.inc(stage=self.stage_name)
-        if span is not None:
-            span.attributes["bytes"] = host_bytes
-            span.end()
-        return staged, event
+        return staged, event, host_bytes
 
     # -- consumer side -------------------------------------------------
 
@@ -777,6 +806,18 @@ def run_fit_loop(net, data, labels, mask, epochs: int,
     the partial epoch. ``DL4JTPU_PROFILE_STEPS=start:stop[:dir]`` brackets
     that dispatch range with a profiler capture, the window drained
     before it stops.
+
+    A turn of the loop runs three phases (``util.tracing.phase``, with
+    the net's ``tracer``, which the stager gets too): ``fit.batch_wait``
+    (the fetch that ``fit_host_gap_seconds`` times), the dispatch (the
+    runtime's ``fit.forward_backward`` and ``fit.updater``) and
+    ``fit.device_wait`` (the push into the window, observed in
+    ``fit_phase_seconds``); the turn that finds the data at its end has a
+    ``fit.batch_wait`` alone. With a tracer, each turn is a ``fit.step``
+    span, their parent. It is no profiler range: the turn runs the
+    listeners, which may stop one profile and start the next, and torch
+    ends a range opened in one profile inside the next one by writing
+    into the first one's freed events.
     """
     single = (labels is not None or hasattr(data, "shape")
               or hasattr(data, "features")
@@ -792,6 +833,7 @@ def run_fit_loop(net, data, labels, mask, epochs: int,
         k = 0
     from . import profiling as _profiling
     gap_hist = host_gap_histogram()
+    tracer = net.tracer
     meter = _MfuMeter(model_label)
     profile_range = _profiling.profile_steps_env()
     capture = (_profiling.StepCapture(profile_range[2])
@@ -820,49 +862,61 @@ def run_fit_loop(net, data, labels, mask, epochs: int,
             staged = None
             if not single and staging_enabled() and not already_staged(data):
                 staged = stage(source, stage_name="fit", device=net.device,
-                               tracer=getattr(net, "ingest_tracer", None))
+                               tracer=tracer)
                 source = staged
+            batches = coalesced(source, k)
             n_batches = 0
             t_prev = None
             stopped = False
             try:
-                for kind, payload in coalesced(source, k):
-                    t_now = time.perf_counter()
-                    if t_prev is not None:
-                        gap_hist.observe(t_now - t_prev, model=model_label)
+                while True:
                     if (capture is not None and not capture.active
                             and dispatch_idx == profile_range[0]):
                         capture.start()
-                    _flight.record(
-                        "train_step", model=model_label,
-                        epoch=net.epoch_count,
-                        iteration=net.iteration_count, dispatch=kind,
-                        host_gap_s=(round(t_now - t_prev, 6)
-                                    if t_prev is not None else None))
-                    _faults.check("training.step", {
-                        "model": model_label, "epoch": net.epoch_count,
-                        "iteration": net.iteration_count, "kind": kind})
-                    if kind == "scan":
-                        xs, ys = payload
-                        window.push(_guarded(net, "scan", model_label)(
-                            net, xs, ys)[-1])
-                        consumed = int(xs.shape[0])
-                    else:
-                        window.push(step_fn(net, *payload))
-                        consumed = 1
-                    meter.on_dispatch(kind)
-                    dispatch_idx += 1
+                    with (tracer.span("fit.step") if tracer is not None
+                          else contextlib.nullcontext()):
+                        with _tracing.phase("fit.batch_wait", tracer):
+                            item = next(batches, None)
+                        if item is None:
+                            break
+                        kind, payload = item
+                        t_now = time.perf_counter()
+                        if t_prev is not None:
+                            gap_hist.observe(t_now - t_prev,
+                                             model=model_label)
+                        _flight.record(
+                            "train_step", model=model_label,
+                            epoch=net.epoch_count,
+                            iteration=net.iteration_count, dispatch=kind,
+                            host_gap_s=(round(t_now - t_prev, 6)
+                                        if t_prev is not None else None))
+                        _faults.check("training.step", {
+                            "model": model_label, "epoch": net.epoch_count,
+                            "iteration": net.iteration_count, "kind": kind})
+                        if kind == "scan":
+                            xs, ys = payload
+                            done = _guarded(net, "scan", model_label)(
+                                net, xs, ys)[-1]
+                            consumed = int(xs.shape[0])
+                        else:
+                            done = step_fn(net, *payload)
+                            consumed = 1
+                        with fit_phase("device_wait", tracer, model_label):
+                            window.push(done)
+                        meter.on_dispatch(kind)
+                        dispatch_idx += 1
+                        n_batches += consumed
+                        # a clean stop: every dispatched step lands before
+                        # the caller snapshots the stop instant
+                        stopped = (session is not None
+                                   and not session.on_step(net, consumed))
+                        if stopped:
+                            window.drain()
                     if (capture is not None and capture.active
                             and dispatch_idx >= profile_range[1]):
                         window.drain()
                         capture.stop()
-                    n_batches += consumed
-                    if session is not None and not session.on_step(
-                            net, consumed):
-                        # clean stop: every dispatched step lands before
-                        # the caller snapshots the stop instant
-                        window.drain()
-                        stopped = True
+                    if stopped:
                         break
                     t_prev = time.perf_counter()
             finally:

@@ -1,7 +1,8 @@
 """Tracing substrate: spans with parent links, JSONL export, seam context,
 and serializable cross-scope propagation.
 
-A copy of the JAX package's ``util/tracing.py`` (host code, no JAX math).
+A copy of the JAX package's ``util/tracing.py`` (host code, no JAX math),
+with :func:`phase` added for the profiler.
 
 The companion of :mod:`deeplearning4j_tpu_torch.util.metrics`: metrics say *how
 often* and *how long* in aggregate; a trace says what ONE request did —
@@ -34,6 +35,12 @@ flight recorder: every flight event recorded while a span is active
 carries the active ``trace_id``/``span_id``, so a watchdog or crash dump
 cross-references the exact request or round it interrupted.
 
+Phases (:func:`phase`) are the hot path's form: the fit loop and both
+runtimes' update mark a step's phases with it, and the stager its copies.
+A phase is a span when a tracer is attached and a ``record_function``
+range while a ``torch.profiler`` records, both on the Unix-epoch clock
+the profiler's absolute times use; with neither it costs one check.
+
 Memory: a tracer keeps the newest ``max_spans`` finished spans (default
 10000, ``DL4JTPU_TRACE_MAX_SPANS``); overflow drops the OLDEST spans,
 counted in ``tracer_spans_dropped_total`` with a one-time warning — the
@@ -43,6 +50,7 @@ visible.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -53,6 +61,8 @@ import threading
 import time
 import weakref
 from typing import Any, Dict, List, Optional
+
+import torch.autograd.profiler as _torch_profiler
 
 from . import faults as _faults
 from . import flightrecorder as _flight
@@ -263,26 +273,11 @@ class Tracer:
                     parent.span_id if parent else None, attributes)
 
     def span(self, name: str, parent: Optional[Any] = None,
-             attributes: Optional[Dict[str, Any]] = None):
+             attributes: Optional[Dict[str, Any]] = None) -> "_SpanScope":
         """Context manager: starts a span, makes it this thread's active
         span (and the fault-seam context), ends it on exit — status
         "error" if the block raised."""
-        tracer = self
-        s = self.start(name, parent, attributes)
-
-        class _Ctx:
-            def __enter__(self):
-                tracer._active.stack.append(s)
-                return s
-
-            def __exit__(self, exc_type, exc, tb):
-                stack = tracer._active.stack
-                if stack and stack[-1] is s:
-                    stack.pop()
-                s.end("error" if exc_type is not None else None)
-                return False
-
-        return _Ctx()
+        return _SpanScope(self, self.start(name, parent, attributes))
 
     def record(self, name: str, seconds: float,
                parent: Optional[Any] = None,
@@ -344,6 +339,80 @@ class Tracer:
     def clear(self) -> None:
         with self._lock:
             self._finished.clear()
+
+
+class _SpanScope:
+    """What :meth:`Tracer.span` returns: the span is this thread's active
+    one between enter and exit."""
+
+    __slots__ = ("_tracer", "_span")
+
+    def __init__(self, tracer: Tracer, span: Span):
+        self._tracer = tracer
+        self._span = span
+
+    def __enter__(self) -> Span:
+        self._tracer._active.stack.append(self._span)
+        return self._span
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        stack = self._tracer._active.stack
+        if stack and stack[-1] is self._span:
+            stack.pop()
+        self._span.end("error" if exc_type is not None else None)
+        return False
+
+
+# ---------------------------------------------------------------------------
+# phases: spans that also land in a running profile
+# ---------------------------------------------------------------------------
+
+
+_NO_PHASE = contextlib.nullcontext()
+
+
+class _Phase:
+    __slots__ = ("_name", "_scope", "_range")
+
+    def __init__(self, name: str, tracer: Optional[Tracer],
+                 attributes: Optional[Dict[str, Any]]):
+        self._name = name
+        self._scope = (tracer.span(name, attributes=attributes)
+                       if tracer is not None else None)
+        self._range = None
+
+    def __enter__(self) -> Optional[Span]:
+        span = self._scope.__enter__() if self._scope is not None else None
+        if _torch_profiler._is_profiler_enabled:
+            self._range = _torch_profiler.record_function(self._name)
+            self._range.__enter__()
+        return span
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        if self._scope is not None:
+            self._scope.__exit__(exc_type, exc, tb)
+        return False
+
+
+def phase(name: str, tracer: Optional[Tracer] = None,
+          attributes: Optional[Dict[str, Any]] = None):
+    """Context manager for one phase of a hot path (a training step's
+    batch wait, forward and backward, updater, device wait; a stager's
+    copy). While a ``torch.profiler`` records in this process it opens a
+    ``record_function(name)`` range, so the phase and the kernels launched
+    inside it land in the profile on the profiler's clock; with a
+    ``tracer`` it also records a span (``tracer.span``), the same wall
+    interval within microseconds, parented under this thread's active
+    span. It yields the span, or None without a tracer. With neither, it
+    costs one check and creates nothing. Keep code that may stop one
+    profile and start the next (a listener) out of a phase: torch ends a
+    range opened in one profile inside the next by writing into the
+    first one's freed events."""
+    if tracer is None and not _torch_profiler._is_profiler_enabled:
+        return _NO_PHASE
+    return _Phase(name, tracer, attributes)
 
 
 # ---------------------------------------------------------------------------
