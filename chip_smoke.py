@@ -6,8 +6,8 @@ Phases, in order; any failure propagates and the script exits non-zero:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: the kernel sources from deeplearning4j_tpu_torch/ops/csrc
-   (flash_fwd.cu, flash_fwd_f32.cu, flash_bwd.cu, flash_bwd_f32.cu), one
-   nvcc each, all at once (a second run reuses the builds); each one's
+   (flash_fwd.cu, flash_fwd_f32.cu, flash_bwd.cu, flash_bwd_f32.cu,
+   fused_adam.cu), one nvcc each, all at once (a second run reuses the builds); each one's
    build seconds, registers and spills (``-Xptxas -v``); the SASS of every
    library (``cuobjdump -sass``): per kernel the counts of HGMMA (wgmma),
    UTMALDG (TMA tile loads), UBLKCP (bulk copies) and LDGSTS (cp.async) —
@@ -34,7 +34,14 @@ Phases, in order; any failure propagates and the script exits non-zero:
    only; dq + dk/dv is reported as a ratio of it); the f32 forward kernel
    alone (its out and lse errors apart, two launches bitwise equal, its
    3xTF32 and FFMA bounds) and its pre-pass (bitwise its plain version)
-   beside the forward of scaled_dot_product_attention in f32;
+   beside the forward of scaled_dot_product_attention in f32; then the
+   multi-tensor adam kernel at OPT-125m's 137 leaves (162.3M parameters):
+   20 updates through the updater's in-place step against the plain
+   per-leaf path, p, m, v and the deltas bitwise equal, one launch an
+   update; the kernel timed alone (with and without the delta output)
+   beside its bytes bound (28 B a parameter), the whole step's device span
+   and host time, the plain per-leaf path's, and torch._fused_adam_ (a
+   yardstick only);
 5. forward main path: the flagship transformer LM (d_model 768, 12
    layers, 12 heads, d_ff 3072, V 32768, mixed_bf16) built and initialised
    by the port on the card, one forward over [8, 2048] ids through the
@@ -46,7 +53,8 @@ Phases, in order; any failure propagates and the script exits non-zero:
    POST /predict requests, each equal to net.output on the same ids;
 7. training main path on that model (adam at lr 3e-4, ids [8, 2049]
    split into inputs and next-token labels): one fit_batch, in which each
-   of the four kernels must launch exactly once per layer; each layer's
+   of the four kernels must launch exactly once per layer and the fused
+   adam kernel once; each layer's
    backward kernel call held against the plain backward on its own
    inputs; step-0 gradients of the kernel route against the route with
    the plain attention forward and backward, and against the kernel
@@ -329,10 +337,13 @@ from deeplearning4j_tpu_torch.nn.conf.attention import (  # noqa: E402
 from deeplearning4j_tpu_torch.nn.conf.layers import (  # noqa: E402
     LayerNormalization, RnnOutputLayer)
 from deeplearning4j_tpu_torch.nn.conf.recurrent import GravesLSTM  # noqa: E402
+from deeplearning4j_tpu_torch.nn.conf.training import TrainingConfig  # noqa: E402
 from deeplearning4j_tpu_torch.nn.graph_runtime import ComputationGraph  # noqa: E402
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork  # noqa: E402
 from deeplearning4j_tpu_torch.ops import _nvcc  # noqa: E402
 from deeplearning4j_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from deeplearning4j_tpu_torch.ops import fused_adam  # noqa: E402
+from deeplearning4j_tpu_torch.optimize import updaters  # noqa: E402
 from deeplearning4j_tpu_torch.models import transformer as tlm  # noqa: E402
 from deeplearning4j_tpu_torch.ops import attention as tattn  # noqa: E402
 from deeplearning4j_tpu_torch.parallel import (  # noqa: E402
@@ -372,12 +383,16 @@ from pathlib import Path  # noqa: E402
 
 SEED = 20261016
 DEV = torch.device("cuda")
-KERNELS = (fa.FLASH_FWD, fa.FLASH_BWD_PREPROCESS, fa.FLASH_BWD_DQ,
-           fa.FLASH_BWD_DKV, fa.FLASH_BWD_SPLIT_F32, fa.FLASH_BWD_DQ_F32,
-           fa.FLASH_BWD_DKV_F32, fa.FLASH_FWD_SPLIT_F32, fa.FLASH_FWD_F32)
+FLASH_KERNELS = (fa.FLASH_FWD, fa.FLASH_BWD_PREPROCESS, fa.FLASH_BWD_DQ,
+                 fa.FLASH_BWD_DKV, fa.FLASH_BWD_SPLIT_F32,
+                 fa.FLASH_BWD_DQ_F32, fa.FLASH_BWD_DKV_F32,
+                 fa.FLASH_FWD_SPLIT_F32, fa.FLASH_FWD_F32)
+# every hand-written kernel: the flash kernels (whose launches the phases'
+# gates count) and the multi-tensor adam update
+KERNELS = FLASH_KERNELS + (fused_adam.FUSED_ADAM,)
 # the kernels a bf16 attention step launches, and those an f32 one (the
 # ring's hops) launches
-BF16_KERNELS = KERNELS[:4]
+BF16_KERNELS = FLASH_KERNELS[:4]
 F32_KERNELS = (fa.FLASH_FWD_SPLIT_F32, fa.FLASH_FWD_F32,
                fa.FLASH_BWD_PREPROCESS, fa.FLASH_BWD_SPLIT_F32,
                fa.FLASH_BWD_DQ_F32, fa.FLASH_BWD_DKV_F32)
@@ -848,6 +863,146 @@ def phase_flagship_kernel_timing(build):
     return res
 
 
+# OPT-125m's parameter tree as the port builds it (transformer_lm at its
+# published widths): 137 leaves, 162,296,416 parameters
+OPT125M = {"V": 50272, "L": 12, "D": 768, "H": 12, "F": 3072}
+ADAM_ITERS = 20
+# bytes a parameter the fused update must move: p, g, m, v read, p, m, v
+# written (and the delta written, when asked)
+ADAM_BYTES, ADAM_BYTES_DELTA = 28, 32
+
+
+def opt125m_leaves(device, gen):
+    """OPT-125m's leaves, N(0, 0.02) on the card: {vertex: {param: t}}."""
+    from deeplearning4j_tpu_torch.dtypes import policy_from_name
+    c = OPT125M
+    conf = transformer_lm(c["V"], n_layers=c["L"], d_model=c["D"],
+                          n_heads=c["H"], d_ff=c["F"], updater="adam",
+                          learning_rate=3e-4, dtype="mixed_bf16",
+                          input_ids=True)
+    policy = policy_from_name(conf.training.dtype)
+    return {n: {k: 0.02 * torch.randn(s, generator=gen, device=device)
+                for k, s in conf.vertices[n].param_shapes(policy).items()}
+            for n in conf.topological_order()}
+
+
+def phase_fused_adam():
+    """The multi-tensor adam kernel at OPT-125m's 137 leaves: one step and
+    then ``ADAM_ITERS`` against the plain per-leaf path (p, m, v and the
+    deltas bitwise), one launch a step; timed beside its bytes bound, the
+    plain per-leaf path (its device span and host time a step) and
+    torch._fused_adam_ (a yardstick only: the port never calls it).
+    Returns the kernel's readings."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 20)
+    params = opt125m_leaves(DEV, gen)
+    grads = [{v: {k: 1e-3 * torch.randn(x.shape, generator=gen, device=DEV)
+                  for k, x in d.items()} for v, d in params.items()}
+             for _ in range(2)]
+    n = sum(x.numel() for d in params.values() for x in d.values())
+    leaves = sum(len(d) for d in params.values())
+    upd = updaters.make_updater(TrainingConfig(updater="adam",
+                                               learning_rate=3e-4))
+    twin = {v: {k: x.clone() for k, x in d.items()}
+            for v, d in params.items()}
+    state, twin_state = upd.init(params), upd.init(twin)
+    before = fused_adam.FUSED_ADAM.launches
+    for it in range(ADAM_ITERS):
+        d_k, state = updaters.update_in_place(
+            upd, params, grads[it % 2], state, it, want_deltas=True,
+            model="chip_smoke")
+        d_p, twin_state = upd.update(grads[it % 2], twin_state, it)
+        updaters.apply_updates(twin, d_p)
+        if it == 0 and not tree_bitwise_equal(d_k, d_p):
+            raise AssertionError("fused adam's first deltas differ from "
+                                 "the plain path's")
+    torch.cuda.synchronize()
+    launched = fused_adam.FUSED_ADAM.launches - before
+    same = {"p": tree_bitwise_equal(params, twin),
+            "m": tree_bitwise_equal(state["m"], twin_state["m"]),
+            "v": tree_bitwise_equal(state["v"], twin_state["v"])}
+    print(f"fused adam at OPT-125m ({leaves} leaves, {n} parameters): "
+          f"{ADAM_ITERS} steps, {launched} launches, bitwise equal to the "
+          f"plain per-leaf path {same}")
+    if launched != ADAM_ITERS or not all(same.values()):
+        raise AssertionError("fused adam disagrees with the plain path or "
+                             "did not launch once a step")
+    del twin, twin_state, d_k, d_p
+
+    it = [ADAM_ITERS]
+
+    def kernel(want_deltas=False):
+        updaters.update_in_place(upd, params, grads[it[0] % 2], state,
+                                 it[0], want_deltas=want_deltas,
+                                 model="chip_smoke")
+        it[0] += 1
+
+    # the kernel alone: launches of prebuilt tables, back to back
+    _, flat_g, flat_p, flat_m, flat_v = updaters._flatten(
+        grads[0], params, state["m"], state["v"])
+    lrs = [3e-4] * len(flat_p)
+    sc = fused_adam.Scalars.at(0.9, 0.999, 1e-8, ADAM_ITERS)
+    stream = torch.cuda.current_stream().cuda_stream
+    recs = fused_adam.records(flat_p, flat_g, flat_m, flat_v)
+    tabs = fused_adam.tables(recs, lrs)
+    kernel_ms = cuda_ms(lambda: fused_adam.launch(tabs, sc, stream),
+                        ADAM_ITERS)
+    outs = [torch.empty_like(x) for x in flat_p]
+    tabs = fused_adam.tables(recs, lrs, outs)
+    delta_ms = cuda_ms(lambda: fused_adam.launch(tabs, sc, stream),
+                       ADAM_ITERS)
+    del outs, tabs
+    # the updater's whole step: the routing, the tables and the launch
+    step_ms = cuda_ms(kernel, ADAM_ITERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ADAM_ITERS):
+        kernel()
+    kernel_host_ms = 1e3 * (time.perf_counter() - t0) / ADAM_ITERS
+    t0 = time.perf_counter()
+    for _ in range(ADAM_ITERS):
+        kernel(True)
+    delta_host_ms = 1e3 * (time.perf_counter() - t0) / ADAM_ITERS
+    torch.cuda.synchronize()
+
+    def plain():
+        deltas, new = upd.update(grads[it[0] % 2], state, it[0])
+        updaters.apply_updates(params, deltas)
+        state.update(new)
+        it[0] += 1
+
+    plain_ms = cuda_ms(plain, 5)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        plain()
+    plain_host_ms = 1e3 * (time.perf_counter() - t0) / 5
+    torch.cuda.synchronize()
+    steps = [torch.tensor(float(it[0]), device=DEV) for _ in flat_p]
+    try:   # the yardstick only; a torch without it leaves it unmeasured
+        library_ms = cuda_ms(lambda: torch._fused_adam_(
+            flat_p, flat_g, flat_m, flat_v, [], steps, lr=3e-4, beta1=0.9,
+            beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
+            maximize=False), ADAM_ITERS)
+    except (AttributeError, RuntimeError, TypeError) as e:
+        print(f"fused adam: torch._fused_adam_ not timed: {e}")
+        library_ms = None
+    bound_ms = 1e3 * ADAM_BYTES * n / PEAK_BYTES
+    bound_delta_ms = 1e3 * ADAM_BYTES_DELTA * n / PEAK_BYTES
+    out = {"leaves": leaves, "parameters": n,
+           "launches_per_step": launched / ADAM_ITERS,
+           "h100_ms": kernel_ms, "h100_ms_with_deltas": delta_ms,
+           "step_ms": step_ms, "step_host_ms": kernel_host_ms,
+           "step_host_ms_with_deltas": delta_host_ms,
+           "bound_ms": bound_ms, "bound": "bytes",
+           "bound_share": bound_ms / kernel_ms,
+           "bound_ms_with_deltas": bound_delta_ms,
+           "bound_share_with_deltas": bound_delta_ms / delta_ms,
+           "achieved_tb_s": ADAM_BYTES * n / kernel_ms / 1e9,
+           "plain_ms": plain_ms, "plain_host_ms": plain_host_ms,
+           "library": "torch._fused_adam_", "library_ms": library_ms}
+    print("fused adam timing at OPT-125m: " + json.dumps(out))
+    return out
+
+
 def phase_main_path():
     V, L, D, H, F = (FLAGSHIP[k] for k in "VLDHF")
     conf = transformer_lm(V, n_layers=L, d_model=D, n_heads=H, d_ff=F,
@@ -861,14 +1016,14 @@ def phase_main_path():
     net.output(ids[:1, :128])          # warm up
     torch.cuda.synchronize()
 
-    for kn in KERNELS:
+    for kn in FLASH_KERNELS:
         kn.launches = 0
     p = net.output(ids)
     torch.cuda.synchronize()
     launches = fa.FLASH_FWD.launches
-    if launches != L or any(kn.launches for kn in KERNELS[1:]):
+    if launches != L or any(kn.launches for kn in FLASH_KERNELS[1:]):
         raise AssertionError(
-            f"forward path launched {[kn.launches for kn in KERNELS]}, "
+            f"forward path launched {[kn.launches for kn in FLASH_KERNELS]}, "
             f"expected flash_fwd {L} times and no backward kernel")
     if tuple(p.shape) != (8, 2048, V) or p.dtype != torch.bfloat16:
         raise AssertionError(f"output {tuple(p.shape)} {p.dtype}")
@@ -1158,7 +1313,7 @@ def phase_bwd_kernel_vs_plain():
     gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
     worst = {}
     n_cases = 0
-    before = [kn.launches for kn in KERNELS]
+    before = [kn.launches for kn in FLASH_KERNELS]
     for t in GRID_T:
         for d in (64, 128):
             for dtype in (torch.bfloat16, torch.float32):
@@ -1200,7 +1355,7 @@ def phase_bwd_kernel_vs_plain():
                             w[2 * i + 1] = max(w[2 * i + 1], r)
                         w[6] = max(w[6], e_delta)
                         n_cases += 1
-    for kn, n in zip(KERNELS, before):   # check launches do not count
+    for kn, n in zip(FLASH_KERNELS, before):   # check launches do not count
         kn.launches = n
     for key, w in worst.items():
         bound = ("bf16_grad_tolerance" if key == "bfloat16"
@@ -1380,7 +1535,7 @@ def phase_bwd_timing(build):
     f32 call's instances), and the f32 forward kernel and its pre-pass
     beside the forward of scaled_dot_product_attention in f32. Timing and
     check launches do not count."""
-    before = [kn.launches for kn in KERNELS]
+    before = [kn.launches for kn in FLASH_KERNELS]
     res = bwd_timing(torch.bfloat16, build)
     res.update(bwd_timing(torch.float32, build))
     b, t, h = (FLAGSHIP[k] for k in "BTH")
@@ -1389,7 +1544,7 @@ def phase_bwd_timing(build):
     res["flash_fwd_f32"] = fwd
     fwd["instances"] = {label: build.get(label, {})
                         for label in WGMMA_KERNELS["flash_fwd_f32"]}
-    for kn, n in zip(KERNELS, before):
+    for kn, n in zip(FLASH_KERNELS, before):
         kn.launches = n
     return res
 
@@ -1487,17 +1642,22 @@ def phase_training(net):
 
     # 1. one fit_batch: every kernel launches once per layer
     with bwd_calls() as calls:
-        for kn in KERNELS:
+        for kn in FLASH_KERNELS:
             kn.launches = 0
+        adam0 = fused_adam.FUSED_ADAM.launches
         loss0 = net.fit_batch(x, y)
         torch.cuda.synchronize()
-        launches = {kn.name: kn.launches for kn in KERNELS}
+        launches = {kn.name: kn.launches for kn in FLASH_KERNELS}
     loss0 = float(loss0)
+    adam = fused_adam.FUSED_ADAM.launches - adam0
     print(f"training main path: one fit_batch, loss {loss0:.6g}, launches "
-          f"{launches}")
+          f"{launches}, fused adam {adam}")
     if not launched_as(launches, L, BF16_KERNELS):
         raise AssertionError(f"a training step launched {launches}, "
                              f"expected each bf16 kernel {L} times")
+    if adam != 1:
+        raise AssertionError(f"a training step launched fused adam {adam} "
+                             "times, expected once")
     if not np.isfinite(loss0):
         raise AssertionError("non-finite training loss")
 
@@ -1521,7 +1681,7 @@ def phase_training(net):
 
     # 3. step-0 gradients: the kernel route against the plain-attention
     # route, and against the kernel forward with the plain backward
-    before = [kn.launches for kn in KERNELS]
+    before = [kn.launches for kn in FLASH_KERNELS]
     g_kernel = flat_grads(net, x, y)
     with kernel_routes(fwd=plain_fwd, bwd=plain_bwd):
         g_plain = flat_grads(net, x, y)
@@ -1529,7 +1689,7 @@ def phase_training(net):
         g_plain_bwd = flat_grads(net, x, y)
     with kernel_routes(bwd=faulty_plain_bwd):
         g_fault = flat_grads(net, x, y)
-    for kn, n in zip(KERNELS, before):   # check launches do not count
+    for kn, n in zip(FLASH_KERNELS, before):   # check launches do not count
         kn.launches = n
     readings = {"plain": route_diff(g_kernel, g_plain),
                 "plain backward": route_diff(g_kernel, g_plain_bwd),
@@ -1553,7 +1713,7 @@ def phase_training(net):
                              "backward that leaves one 64-key tile out")
 
     # 4./5. two timed rounds of fit_repeated(k) on the same batch
-    before = [kn.launches for kn in KERNELS]
+    before = [kn.launches for kn in FLASH_KERNELS]
     losses, step_s = fit_rounds(net, x, y)
     if not np.isfinite(losses).all() or not losses[-1] < loss0:
         raise AssertionError(f"fit_repeated losses {losses} (step 0: {loss0})")
@@ -1581,10 +1741,10 @@ def phase_training(net):
     if dev_ms is not None:
         print(f"training main path: device busy {dev_ms:.3f} ms of the "
               f"{step_s * 1e3:.3f} ms step ({100 * dev_ms / (step_s * 1e3):.1f}%)")
-    for kn, n in zip(KERNELS, before):   # timing launches do not count
+    for kn, n in zip(FLASH_KERNELS, before):   # timing launches do not count
         kn.launches = n
     auto_route_d32()
-    return launches
+    return dict(launches, fused_adam=adam)
 
 
 # A net whose head dim no kernel takes: transformer_lm(d_model=512,
@@ -1611,10 +1771,10 @@ def auto_route_d32():
             V, n_layers=1, d_model=D, n_heads=H, d_ff=F, input_ids=True,
             seed=SEED)).init()
         return float(net.fit_batch(x, y)), net
-    before = [kn.launches for kn in KERNELS]
+    before = [kn.launches for kn in FLASH_KERNELS]
     loss, net = step()
     torch.cuda.synchronize()
-    launched = {kn.name: kn.launches - n for kn, n in zip(KERNELS, before)}
+    launched = {kn.name: kn.launches - n for kn, n in zip(FLASH_KERNELS, before)}
     os.environ["DL4JTPU_FLASH_ATTENTION"] = "0"
     try:
         dense_loss, dense_net = step()
@@ -1951,22 +2111,22 @@ def mln_attention_route():
         return torch.cat([t.float().reshape(-1) for ps in g.values()
                           for t in ps.values()])
 
-    before = [kn.launches for kn in KERNELS]
+    before = [kn.launches for kn in FLASH_KERNELS]
     out_flash, g_flash = net.output(x).float(), grads()
     os.environ["DL4JTPU_FLASH_ATTENTION"] = "0"
     try:
         out_dense, g_dense = net.output(x).float(), grads()
     finally:
         del os.environ["DL4JTPU_FLASH_ATTENTION"]
-    for kn, n in zip(KERNELS, before):   # check launches do not count
+    for kn, n in zip(FLASH_KERNELS, before):   # check launches do not count
         kn.launches = n
     fwd = route_diff(out_flash, out_dense)
     grd = route_diff(g_flash, g_dense)
-    for kn in KERNELS:
+    for kn in FLASH_KERNELS:
         kn.launches = 0
     loss = float(net.fit_batch(x, y))
     torch.cuda.synchronize()
-    launches = {kn.name: kn.launches for kn in KERNELS}
+    launches = {kn.name: kn.launches for kn in FLASH_KERNELS}
     print(f"classic MLN attention route [{c['B']}, {c['T']}] width "
           f"{c['width']}, {c['heads']} heads, mixed_bf16: one fit_batch "
           f"(loss {loss:.6g}) launches {launches}; vs the dense route "
@@ -2254,13 +2414,13 @@ def phase_moe():
         np.int32)
     net.output(ids[:1, :128])
     torch.cuda.synchronize()
-    for kn in KERNELS:
+    for kn in FLASH_KERNELS:
         kn.launches = 0
     p = net.output(ids)
     torch.cuda.synchronize()
-    launches["forward"] = {kn.name: kn.launches for kn in KERNELS}
+    launches["forward"] = {kn.name: kn.launches for kn in FLASH_KERNELS}
     if launches["forward"]["flash_fwd"] != L or \
-            any(kn.launches for kn in KERNELS[1:]):
+            any(kn.launches for kn in FLASH_KERNELS[1:]):
         raise AssertionError(f"moe forward launched {launches['forward']}")
     pf = p.float()
     row_err = (pf.sum(-1) - 1.0).abs().max().item()
@@ -2386,14 +2546,14 @@ def phase_moe():
         np.int32)
     x = torch.as_tensor(ids_t[:, :-1], device=DEV)
     y = torch.as_tensor(ids_t[:, 1:], device=DEV)
-    for kn in KERNELS:
+    for kn in FLASH_KERNELS:
         kn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     with moe_taps() as taps:
         loss0 = net.fit_batch(x, y)
         torch.cuda.synchronize()
     peak_step = torch.cuda.max_memory_allocated()
-    launches["training"] = {kn.name: kn.launches for kn in KERNELS}
+    launches["training"] = {kn.name: kn.launches for kn in FLASH_KERNELS}
     if not launched_as(launches["training"], L, BF16_KERNELS):
         raise AssertionError(f"a moe training step launched "
                              f"{launches['training']}")
@@ -2431,7 +2591,7 @@ def phase_moe():
           f"{100 * tps * active_fpt / PEAK_BF16_FLOPS:.2f}% of "
           f"{PEAK_BF16_FLOPS / 1e12:.0f}; peak memory of a step "
           f"{peak_step} bytes")
-    before = [kn.launches for kn in KERNELS]
+    before = [kn.launches for kn in FLASH_KERNELS]
     classes, counts = {}, {}
     dev_ms = profile(lambda: net.fit_batch(x, y), "moe, one training step",
                      classes=classes, counts=counts,
@@ -2457,7 +2617,7 @@ def phase_moe():
     # 3. gradient checkpointing from one state: the same loss and gradients
     def loss_grads(remat):
         net.conf.training.gradient_checkpointing = remat
-        for kn in KERNELS:
+        for kn in FLASH_KERNELS:
             kn.launches = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2466,7 +2626,7 @@ def phase_moe():
         flat = torch.cat([t.float().reshape(-1) for ps in g.values()
                           for t in ps.values()])
         return (float(loss), flat, torch.cuda.max_memory_allocated(),
-                {kn.name: kn.launches for kn in KERNELS})
+                {kn.name: kn.launches for kn in FLASH_KERNELS})
 
     l_plain, g_plain, peak_plain, _ = loss_grads(False)
     l_remat, g_remat, peak_remat, launches["remat"] = loss_grads(True)
@@ -2537,7 +2697,7 @@ def phase_moe():
         raise AssertionError("moe checkpoint does not round-trip")
     out.update(checkpoint_bytes=size, checkpoint_layers=MOE["save_layers"],
                save_s=save_s, load_s=load_s)
-    for kn, n_ in zip(KERNELS, before):   # timing launches do not count
+    for kn, n_ in zip(FLASH_KERNELS, before):   # timing launches do not count
         kn.launches = n_
 
     # 5. captured decode through the paged engine (ticked step)
@@ -3539,9 +3699,9 @@ def fleet_net(seed):
 def predict_close(got, net, ids):
     """max|Δp| of a /predict answer against the net's own output on the
     same ids; fails above SERVE_TOL·max p."""
-    before = [kn.launches for kn in KERNELS]
+    before = [kn.launches for kn in FLASH_KERNELS]
     ref = net.output(ids).float().cpu().numpy()
-    for kn, n in zip(KERNELS, before):    # comparison launches do not count
+    for kn, n in zip(FLASH_KERNELS, before):    # comparison launches do not count
         kn.launches = n
     err = float(np.abs(np.asarray(got, np.float32) - ref).max())
     if not err <= SERVE_TOL * float(ref.max()):
@@ -3678,7 +3838,7 @@ def phase_fleet():
     store = FileCoordinationStore(os.path.join(tmp, "store"))
     replicas = ["r0", "r1"]
     servers, agents, docs = [], [], []
-    for kn in KERNELS:
+    for kn in FLASH_KERNELS:
         kn.launches = 0
     t_start = time.perf_counter()
     for i, name in enumerate(replicas):
@@ -3862,7 +4022,7 @@ def phase_fleet():
               f"carries {sorted(router_kinds)}")
         readings.update(timelines=n_timelines,
                         ttft_breakdown_rel_err=worst_ttft)
-        launches["fleet"] = {kn.name: kn.launches for kn in KERNELS}
+        launches["fleet"] = {kn.name: kn.launches for kn in FLASH_KERNELS}
         if launches["fleet"]["flash_fwd"] < L:
             raise AssertionError(f"the fleet path launched "
                                  f"{launches['fleet']}")
@@ -4059,7 +4219,7 @@ def phase_health():
         torch.cuda.synchronize()
         return time.perf_counter() - t0, loss
 
-    before = [kn.launches for kn in KERNELS]
+    before = [kn.launches for kn in FLASH_KERNELS]
     step(False)                        # first calls: library set-up
     step(True)
     walls = {False: [], True: []}
@@ -4083,7 +4243,7 @@ def phase_health():
         dev[stats] = (ms, counts.get("kernels"), counts.get("host"),
                       counts.get("syncs"))
     n_sync_plain, n_sync_stats = dev[False][3], dev[True][3]
-    for kn, n in zip(KERNELS, before):   # these launches do not count
+    for kn, n in zip(FLASH_KERNELS, before):   # these launches do not count
         kn.launches = n
 
     listener = health.HealthListener(frequency=1, model="flagship",
@@ -4092,11 +4252,11 @@ def phase_health():
     with stats_inputs() as seen:
         restore_state(net, state0)
         net.enable_health_stats()
-        for kn in KERNELS:
+        for kn in FLASH_KERNELS:
             kn.launches = 0
         net.fit_batch(x, y)
         torch.cuda.synchronize()
-        launches = {kn.name: kn.launches for kn in KERNELS}
+        launches = {kn.name: kn.launches for kn in FLASH_KERNELS}
     net.set_listeners()
     bitwise = all(torch.equal(a, p_plain[v][k])
                   for v, ps in net.params.items() for k, a in ps.items())
@@ -4536,13 +4696,13 @@ def phase_substrate():
         skips = skipped_counter()
         skip0 = skips.value()
         ev0 = len(flightrecorder.events("train_step"))
-        for kn in KERNELS:
+        for kn in FLASH_KERNELS:
             kn.launches = 0
         t0 = log.t0 = time.perf_counter()
         seam_a.run(lambda: net.fit(it, epochs=1, session=session))
         torch.cuda.synchronize()
         wall_a = time.perf_counter() - t0
-        launches = {kn.name: kn.launches for kn in KERNELS}
+        launches = {kn.name: kn.launches for kn in FLASH_KERNELS}
         syncs = ingest.sync_counter().value() - syncs0
         h2d_b = reg.get("ingest_h2d_bytes_total").value(stage="fit") - h2d_b0
         h2d_s = reg.get("ingest_h2d_seconds_total").value(
@@ -4877,11 +5037,11 @@ def ring_case(gen, mask_kind):
         out, lse = tattn.virtual_ring_fwd(q, k, v, mask, n, causal=True)
         return out, lse, tattn.virtual_ring_bwd(q, k, v, mask, out, lse, g,
                                                 n, causal=True)
-    for kn in KERNELS:
+    for kn in FLASH_KERNELS:
         kn.launches = 0
     out, lse, grads = ring()
     torch.cuda.synchronize()
-    launches = {kn.name: kn.launches for kn in KERNELS}
+    launches = {kn.name: kn.launches for kn in FLASH_KERNELS}
     ref_out, ref_lse = fa._flash_fwd_cuda(q, k, v, mask, True, s)
     ref_grads = fa._flash_bwd_cuda(q, k, v, mask, ref_out, ref_lse, g, True,
                                    s)
@@ -5221,10 +5381,10 @@ def distribution_training():
     if not {"out", "dk", "dv"} <= set(over(fault_errs, SP_HOP_TOL)):
         raise AssertionError(f"a one-tile fault in the ring's hop passes "
                              f"the bound: {fault_errs}")
-    for kn in KERNELS:
+    for kn in FLASH_KERNELS:
         kn.launches = 0
     times = step_times(lambda: sp_losses.append(float(sp.fit_batch(x, y))))
-    ring_launches = {kn.name: kn.launches for kn in KERNELS}
+    ring_launches = {kn.name: kn.launches for kn in FLASH_KERNELS}
     # the plain step with its attention computed as the ring of one rank
     # computes it (f32 kernels, one call): the same operations, so equal
     net_ref = flagship_net(L)
@@ -5642,10 +5802,10 @@ def phase_dashboard(tmp, flagship):
                                  device_stats=True)
         syncs = ingest.sync_counter()
         s0 = syncs.total()
-        for kn in KERNELS:
+        for kn in FLASH_KERNELS:
             kn.launches = 0
         listener_ms = run(listener)
-        launches = {kn.name: kn.launches for kn in KERNELS}
+        launches = {kn.name: kn.launches for kn in FLASH_KERNELS}
         n_sync = syncs.total() - s0
         net.set_listeners()
         windows = steps // freq
@@ -6273,7 +6433,7 @@ def embed_paragraphs_glove(failures):
 def phase_embeddings():
     """The embedding stack on the card: parts A-D (see the module
     docstring). Launches none of the flash kernels."""
-    for kn in KERNELS:
+    for kn in FLASH_KERNELS:
         kn.launches = 0
     out, failures = {}, []
     for name, fn in (("engine", embed_engine), ("word2vec", embed_word2vec),
@@ -6284,7 +6444,7 @@ def phase_embeddings():
         out[name]["part_s"] = time.perf_counter() - t0
         print(f"embeddings: part {name} {out[name]['part_s']:.3f} s",
               file=sys.stderr, flush=True)
-    launches = {kn.name: kn.launches for kn in KERNELS}
+    launches = {kn.name: kn.launches for kn in FLASH_KERNELS}
     gate(failures, not any(launches.values()),
          f"the embedding path launches no flash kernel: {launches}")
     if failures:
@@ -6743,7 +6903,7 @@ def analysis_keras(failures, tmp):
 def phase_analysis():
     """k-means, t-SNE and Keras import on the card: parts A-D (see the
     module docstring). Launches none of the flash kernels."""
-    for kn in KERNELS:
+    for kn in FLASH_KERNELS:
         kn.launches = 0
     out, failures = {}, []
     with tempfile.TemporaryDirectory() as tmp:
@@ -6756,7 +6916,7 @@ def phase_analysis():
             out[name]["part_s"] = time.perf_counter() - t0
             print(f"analysis: part {name} {out[name]['part_s']:.3f} s "
                   f"({card_line()})", flush=True)
-    launches = {kn.name: kn.launches for kn in KERNELS}
+    launches = {kn.name: kn.launches for kn in FLASH_KERNELS}
     gate(failures, not any(launches.values()),
          f"the analysis path launches no flash kernel: {launches}")
     if failures:
@@ -6778,7 +6938,7 @@ def phase_examples():
     import traceback
     names = sorted(p.stem for p in EXAMPLES_DIR.glob("*.py")
                    if not p.stem.startswith("_"))
-    for kn in KERNELS:
+    for kn in FLASH_KERNELS:
         kn.launches = 0
     saved_argv = sys.argv
     saved_env = {k: os.environ.pop(k) for k in WORLD_ENV if k in os.environ}
@@ -6807,7 +6967,7 @@ def phase_examples():
         sys.argv = saved_argv
         os.environ.update(saved_env)
         distributed.shutdown()      # the one-rank group an example formed
-    launches = {kn.name: kn.launches for kn in KERNELS}
+    launches = {kn.name: kn.launches for kn in FLASH_KERNELS}
     print(f"examples: flash kernel launches over the {len(names)} examples "
           f"{launches}")
     if failures:
@@ -6849,6 +7009,7 @@ def main():
     timed_phase("backward kernels vs plain", phase_bwd_kernel_vs_plain)
     bwd_timing = timed_phase("backward kernel timing", phase_bwd_timing,
                              build)
+    adam_timing = timed_phase("fused adam", phase_fused_adam)
     net, fwd_launches = timed_phase("forward main path", phase_main_path)
     timed_phase("server", phase_server, net)
     train_launches = timed_phase("training main path", phase_training, net)
@@ -6957,6 +7118,12 @@ def main():
             "embeddings": embedding_launches[c],
             "analysis": analysis_launches[c],
             "examples": example_launches[c]}
+    kernels.append(
+        {"name": "fused_adam", "route": "cuda",
+         "source": src + "fused_adam.cu", "replaces": None,
+         "replaces_note": "no TPU kernel: the JAX package's adam is plain "
+                          "XLA; this replaces the port's per-leaf adam ops",
+         "launches": train_launches["fused_adam"], **adam_timing})
     total = f"script {time.perf_counter() - T_START:.3f} s"
     print(total)
     print(f"chip_smoke: {total}", file=sys.stderr, flush=True)

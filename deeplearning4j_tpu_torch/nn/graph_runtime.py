@@ -178,8 +178,10 @@ class ComputationGraph(torch.nn.Module):
         """{vertex: {param name: tensor}} (None before init/load)."""
         if not self._has_params:
             return None
-        return {n: (dict(self.vertex_params[n])
-                    if n in self.vertex_params else {})
+        # a ParameterDict's own table: its item access is a module
+        # attribute lookup a parameter, which the training step pays
+        mods = self.vertex_params._modules
+        return {n: dict(mods[n]._parameters) if n in mods else {}
                 for n in self.topo_order}
 
     def set_params(self, tree: Dict[str, Dict[str, torch.Tensor]]) -> None:
@@ -820,10 +822,11 @@ class ComputationGraph(torch.nn.Module):
             grads = _updaters.normalize_gradients(
                 grads_raw, t.gradient_normalization,
                 float(t.gradient_normalization_threshold))
-            deltas, self.updater_state = self._updater.update(
-                grads, self.updater_state, self._update_count)
             params = self.params
-            _updaters.apply_updates(params, deltas)
+            deltas, self.updater_state = _updaters.update_in_place(
+                self._updater, params, grads, self.updater_state,
+                self._update_count, want_deltas=stats is not None,
+                model="ComputationGraph")
         self._update_count += 1
         # the TBPTT boundary: the carry's values pass on, its graph does not
         self._last_rnn_carry = {

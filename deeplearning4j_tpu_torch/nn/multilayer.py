@@ -125,8 +125,10 @@ class MultiLayerNetwork(torch.nn.Module):
         """{layer_i: {param name: tensor}} (None before init/load)."""
         if not self._has_params:
             return None
-        return {k: (dict(self.layer_params[k]) if k in self.layer_params
-                    else {}) for k in self.keys}
+        # a ParameterDict's own table (see ComputationGraph.params)
+        mods = self.layer_params._modules
+        return {k: dict(mods[k]._parameters) if k in mods else {}
+                for k in self.keys}
 
     def set_params(self, tree: Dict[str, Dict[str, torch.Tensor]]) -> None:
         """Install parameters, checked name by name and shape by shape
@@ -554,10 +556,11 @@ class MultiLayerNetwork(torch.nn.Module):
             grads = _updaters.normalize_gradients(
                 grads_raw, t.gradient_normalization,
                 float(t.gradient_normalization_threshold))
-            deltas, self.updater_state = self._updater.update(
-                grads, self.updater_state, self._update_count)
             params = self.params
-            _updaters.apply_updates(params, deltas)
+            deltas, self.updater_state = _updaters.update_in_place(
+                self._updater, params, grads, self.updater_state,
+                self._update_count, want_deltas=stats is not None,
+                model="MultiLayerNetwork")
         self._update_count += 1
         # the TBPTT boundary: the carry's values pass on, its graph does not
         self._last_rnn_carry = _detach_tree(self._extract_rnn_carry(new_states))

@@ -15,6 +15,15 @@ them from the parameters IN PLACE (``p.sub_(delta)`` under
 scheduled learning rate, bias corrections) are computed on the host in
 float32, as the reference computes them on the device, so a step needs no
 host sync.
+
+:func:`update_in_place` is the runtimes' step: the same update applied to
+the parameters in place. The route is a pure rule of what the code can
+observe: under adam, a leaf whose p, g, m and v are contiguous f32 CUDA
+tensors of one size on one device (``ops.fused_adam.takes``) goes to the
+multi-tensor kernel, which updates every such leaf in one pass, p, m and v
+in place, bitwise as ``update()`` + :func:`apply_updates` would; the other
+leaves, and every other rule, run the plain path.
+``updater_leaves_total{model, path}`` counts the leaves each path took.
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ import numpy as np
 import torch
 
 from ..nn.conf.training import TrainingConfig
+from ..ops import fused_adam as _fused_adam
+from ..util import metrics as _metrics
 
 Tree = Any
 _F32 = np.float32
@@ -45,6 +56,41 @@ def _leaves(tree):
             yield from _leaves(v)
     elif tree is not None:
         yield tree
+
+
+def _flatten(tree, *others, prefix=(), out=None):
+    """(the leaves' key paths, ``tree``'s leaves, and each of ``others``'s
+    leaves at the same paths), in ``_leaves`` order: one walk."""
+    if out is None:
+        out = ([], []) + tuple([] for _ in others)
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _flatten(v, *(o[k] for o in others), prefix=prefix + (k,),
+                     out=out)
+        elif v is not None:
+            out[0].append(prefix + (k,))
+            out[1].append(v)
+            for leaves, o in zip(out[2:], others):
+                leaves.append(o[k])
+    return out
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _from_paths(paths, leaves, like=None):
+    """Nested dicts with ``leaves`` at ``paths``, shaped as ``like`` (its
+    empty dicts kept) where given."""
+    out = {} if like is None else _map(lambda _: None, like)
+    for path, leaf in zip(paths, leaves):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -172,6 +218,40 @@ class Updater:
     name: str
     init: Callable[[Tree], Tree]
     update: Callable[[Tree, Tree, int], Tuple[Tree, Tree]]
+    # (params, grads, state, iteration, want_deltas) -> (deltas or None,
+    # new state, fused leaves, plain leaves): the rule's own in-place step,
+    # where it has one (adam); :func:`update_in_place` runs the plain path
+    # otherwise
+    step: Optional[Callable[..., Tuple[Optional[Tree], Tree, int, int]]] = None
+
+
+def leaves_counter(registry=None) -> _metrics.Counter:
+    return (registry or _metrics.REGISTRY).counter(
+        "updater_leaves_total",
+        "Parameter leaves one training update updated, by path: 'fused' "
+        "the multi-tensor adam kernel, 'plain' the per-leaf ops",
+        ("model", "path"))
+
+
+def update_in_place(updater: Updater, params: Tree, grads: Tree, state: Tree,
+                    iteration: int, *, want_deltas: bool = False,
+                    model: str = "") -> Tuple[Optional[Tree], Tree]:
+    """One update applied to ``params`` in place: what ``updater.update`` and
+    :func:`apply_updates` compute, through the rule's fused step where it
+    has one. Returns (the deltas — None from a fused step unless
+    ``want_deltas`` —, the new state), and counts the leaves each path took
+    in ``updater_leaves_total{model, path}``."""
+    if updater.step is not None:
+        deltas, state, fused, plain = updater.step(params, grads, state,
+                                                   iteration, want_deltas)
+    else:
+        deltas, state = updater.update(grads, state, iteration)
+        apply_updates(params, deltas)
+        fused, plain = 0, sum(1 for _ in _leaves(grads))
+    counter = leaves_counter()
+    counter.inc(fused, model=model, path="fused")
+    counter.inc(plain, model=model, path="plain")
+    return deltas, state
 
 
 @torch.no_grad()
@@ -320,11 +400,23 @@ def make_updater(t: TrainingConfig,
             return {"m": _zeros_like_f32(params),
                     "v": _zeros_like_f32(params)}
 
-        def update(grads, state, iteration):
-            lrs = lr_tree(grads, iteration)
-            tstep = _F32(iteration) + _F32(1.0)
+        def update(grads, state, iteration, lrs=None):
+            if lrs is None:
+                lrs = lr_tree(grads, iteration)
             m = _map(lambda m_, g: b1 * m_ + (1 - b1) * to_f32(g),
                      state["m"], grads)
+            if name == "adam":
+                # times the f32 reciprocals of the bias corrections, as ATen
+                # computes a tensor over a Python scalar on the card, on
+                # every device (the fused kernel's arithmetic)
+                s = _fused_adam.Scalars.at(b1, b2, eps, iteration)
+                v = _map(lambda v_, g: b2 * v_ + (1 - b2) * torch.square(to_f32(g)),
+                         state["v"], grads)
+                deltas = _map(lambda m_, v_, lr: lr * (m_ * s.ibc1)
+                              / (torch.sqrt(v_ * s.ibc2) + eps),
+                              m, v, lrs)
+                return deltas, {"m": m, "v": v}
+            tstep = _F32(iteration) + _F32(1.0)
             bc1 = float(_F32(1.0) - np.power(_F32(b1), tstep))
             if name == "adamax":
                 v = _map(lambda v_, g: torch.maximum(b2 * v_, torch.abs(to_f32(g))),
@@ -335,19 +427,71 @@ def make_updater(t: TrainingConfig,
                 v = _map(lambda v_, g: b2 * v_ + (1 - b2) * torch.square(to_f32(g)),
                          state["v"], grads)
                 bc2 = float(_F32(1.0) - np.power(_F32(b2), tstep))
-                if name == "nadam":
-                    deltas = _map(
-                        lambda m_, v_, g, lr: lr
-                        * (b1 * m_ / bc1 + (1 - b1) * to_f32(g) / bc1)
-                        / (torch.sqrt(v_ / bc2) + eps),
-                        m, v, grads, lrs)
-                else:
-                    deltas = _map(lambda m_, v_, lr: lr * (m_ / bc1)
-                                  / (torch.sqrt(v_ / bc2) + eps),
-                                  m, v, lrs)
+                deltas = _map(
+                    lambda m_, v_, g, lr: lr
+                    * (b1 * m_ / bc1 + (1 - b1) * to_f32(g) / bc1)
+                    / (torch.sqrt(v_ / bc2) + eps),
+                    m, v, grads, lrs)
             return deltas, {"m": m, "v": v}
 
-        return Updater(name, init, update)
+        if name != "adam":
+            return Updater(name, init, update)
+
+        mults_of = {}      # the leaves' LR multipliers, by key paths
+
+        def step(params, grads, state, iteration, want_deltas):
+            """The leaves the kernel takes (``ops.fused_adam.takes``)
+            through it in one pass (p, m, v in place; the deltas written
+            where wanted); the rest through ``update``'s per-leaf ops, as
+            their own tree."""
+            paths, gs, ps, ms, vs = _flatten(grads, params, state["m"],
+                                             state["v"])
+            lr = _F32(learning_rate_at(t, iteration))
+            if lr_multipliers is None:
+                lrs = [float(lr)] * len(paths)
+            else:
+                key = tuple(paths)
+                if key not in mults_of:
+                    mults_of[key] = np.array(
+                        [_at(lr_multipliers, path) for path in paths],
+                        dtype=_F32)
+                lrs = (lr * mults_of[key]).tolist()     # f32 products
+            # the rule's check and the kernel's table entries, in one pass
+            recs = _fused_adam.records(ps, gs, ms, vs)
+            fused = [i for i, r in enumerate(recs) if r is not None]
+            plain = [i for i, r in enumerate(recs) if r is None]
+            deltas = [None] * len(gs)
+            if fused:
+                ds = ([torch.empty_like(ps[i]) for i in fused]
+                      if want_deltas else None)
+                _fused_adam.adam_(*([x[i] for i in fused]
+                                    for x in (ps, gs, ms, vs, lrs)),
+                                  _fused_adam.Scalars.at(b1, b2, eps,
+                                                         iteration), ds,
+                                  recs=[recs[i] for i in fused])
+                for j, i in enumerate(fused if want_deltas else ()):
+                    deltas[i] = ds[j]
+            new_state = state       # the fused leaves' m and v, in place
+            if plain:
+                sub = [paths[i] for i in plain]
+                sub_d, sub_state = update(
+                    _from_paths(sub, [gs[i] for i in plain]),
+                    {"m": _from_paths(sub, [ms[i] for i in plain]),
+                     "v": _from_paths(sub, [vs[i] for i in plain])},
+                    iteration, _from_paths(sub, [lrs[i] for i in plain]))
+                apply_updates(_from_paths(sub, [ps[i] for i in plain]),
+                              sub_d)
+                for i, path in zip(plain, sub):
+                    deltas[i] = _at(sub_d, path)
+                    ms[i] = _at(sub_state["m"], path)
+                    vs[i] = _at(sub_state["v"], path)
+                new_state = {"m": _from_paths(paths, ms, grads),
+                             "v": _from_paths(paths, vs, grads)}
+            out = (_from_paths(paths, deltas, grads)
+                   if want_deltas or not fused else None)
+            return out, new_state, len(fused), len(plain)
+
+        return Updater(name, init, update, torch.no_grad()(step))
 
     raise ValueError(f"unknown updater {name!r}; known: sgd, nesterovs, "
                      "adagrad, rmsprop, adadelta, adam, adamax, nadam, none")
