@@ -29,6 +29,7 @@ from .training import TrainingConfig
 
 # register the layer types the graph JSON may name
 from . import attention as _attention  # noqa: F401
+from . import hybrid as _hybrid  # noqa: F401
 from . import moe as _moe  # noqa: F401
 from . import pretrain as _pretrain  # noqa: F401
 from . import recurrent as _recurrent  # noqa: F401

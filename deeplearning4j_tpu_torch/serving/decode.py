@@ -80,6 +80,7 @@ import torch
 from .. import dtypes as _dtypes
 from ..models import transformer as _transformer
 from ..nn.conf.attention import SelfAttentionLayer
+from ..nn.conf.hybrid import GatedShortConvLayer
 from ..nn.conf.layers import EmbeddingSequenceLayer
 from ..util import faults as _faults
 from ..util import flightrecorder as _flight
@@ -332,6 +333,14 @@ class PagedDecodeEngine:
                 "paged decode drives a ComputationGraph (transformer_lm)")
         if net.params is None:
             raise ValueError("net is not initialized — call init() first")
+        convs = [n for n in net.topo_order if isinstance(
+            getattr(net.conf.vertices[n], "layer", None), GatedShortConvLayer)]
+        if convs:
+            raise ValueError(
+                f"vertices {convs[:3]}{' …' if len(convs) > 3 else ''} are "
+                "gated short convolutions: decoding them needs each lane's "
+                "short-conv state (its last conv_l − 1 gated inputs), which "
+                "the paged arena does not hold — it holds K/V only")
         if (len(net.conf.network_inputs) != 1
                 or len(net.conf.network_outputs) != 1):
             raise ValueError("paged decode needs exactly one input and "

@@ -17,7 +17,8 @@ Design:
   ``gauge()`` / ``histogram()`` are get-or-create (idempotent across call
   sites; re-declaring a name as a different type or label set raises).
 - :class:`Counter` — monotonic; ``inc()``, per-labelset children via
-  ``labels()``.
+  ``labels()``; ``inc_device()`` adds a count that stays on a device
+  until the counter is read.
 - :class:`Gauge` — ``set``/``inc``/``dec``, plus ``set_function`` for
   live values (queue depth, breaker state) sampled at exposition time.
 - :class:`Histogram` — explicit buckets, cumulative ``_bucket`` series +
@@ -115,13 +116,19 @@ class _Metric:
 
 
 class Counter(_Metric):
-    """Monotonically increasing count (resets only with the process)."""
+    """Monotonically increasing count (resets only with the process).
+
+    ``inc_device`` adds a one-element tensor without reading it: the sum
+    stays on its device, and whatever reads the counter (``value``,
+    ``total``, exposition, ``snapshot``) folds it in first, so a hot path
+    that counts on the device never waits for it."""
 
     kind = "counter"
 
     def __init__(self, name: str, help: str, labelnames: Sequence[str] = ()):
         super().__init__(name, help, labelnames)
         self._values: Dict[Tuple[str, ...], float] = {}
+        self._on_device: Dict[Tuple[str, ...], object] = {}
 
     def inc(self, amount: float = 1.0, **labels) -> None:
         if amount < 0:
@@ -130,18 +137,39 @@ class Counter(_Metric):
         with self._lock:
             self._values[key] = self._values.get(key, 0.0) + amount
 
+    def inc_device(self, amount, **labels) -> None:
+        """Add the one-element tensor ``amount`` (not negative) to this
+        labelset's running sum on its device (out of place, so that a sum
+        begun under ``torch.inference_mode`` goes on outside it)."""
+        key = _labels_key(self.labelnames, labels)
+        amount = amount.detach().reshape(())
+        with self._lock:
+            acc = self._on_device.get(key)
+            self._on_device[key] = (amount.clone() if acc is None
+                                    else acc + amount)
+
+    def _fold(self) -> None:
+        """Move the sums kept on devices into the host values (reads them:
+        a device synchronisation when there are any). Holds the lock."""
+        for key, acc in self._on_device.items():
+            self._values[key] = self._values.get(key, 0.0) + float(acc)
+        self._on_device.clear()
+
     def value(self, **labels) -> float:
         key = _labels_key(self.labelnames, labels)
         with self._lock:
+            self._fold()
             return self._values.get(key, 0.0)
 
     def total(self) -> float:
         """Sum across every labelset (back-compat for bare-int counters)."""
         with self._lock:
+            self._fold()
             return sum(self._values.values())
 
     def _samples(self) -> List[str]:
         with self._lock:
+            self._fold()
             items = sorted(self._values.items())
         if not items and not self.labelnames:
             items = [((), 0.0)]
@@ -150,6 +178,7 @@ class Counter(_Metric):
 
     def snapshot(self) -> dict:
         with self._lock:
+            self._fold()
             series = [{"labels": dict(zip(self.labelnames, k)), "value": v}
                       for k, v in sorted(self._values.items())]
         return {"type": "counter", "help": self.help, "series": series}
