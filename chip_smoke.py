@@ -41,7 +41,13 @@ Phases, in order; any failure propagates and the script exits non-zero:
    update; the kernel timed alone (with and without the delta output)
    beside its bytes bound (28 B a parameter), the whole step's device span
    and host time, the plain per-leaf path's, and torch._fused_adam_ (a
-   yardstick only);
+   yardstick only); then the gated short conv's two kernels
+   (short_conv.cu) at LFM2-8B-A1B's shape (bcx [1, 8192, 3·2048], L 3,
+   bf16) against the plain passes, two backward runs bitwise equal, each
+   kernel timed alone beside its bytes bound and the plain passes' time,
+   and one training step of the LFM2 cell's net at its widths and row, in
+   which each kernel launches once per conv layer (9): the kernel table's
+   launches a step;
 5. forward main path: the flagship transformer LM (d_model 768, 12
    layers, 12 heads, d_ff 3072, V 32768, mixed_bf16) built and initialised
    by the port on the card, one forward over [8, 2048] ids through the
@@ -323,7 +329,7 @@ from deeplearning4j_tpu_torch.datasets import (  # noqa: E402
     ArrayDataSetIterator, MnistDataSetIterator)
 from deeplearning4j_tpu_torch.datavec import native as dv_native  # noqa: E402
 from deeplearning4j_tpu_torch.models import (  # noqa: E402
-    char_rnn_lstm, lenet, resnet50, transformer_lm)
+    char_rnn_lstm, lenet, lfm2_moe_lm, resnet50, transformer_lm)
 from deeplearning4j_tpu_torch import graph as t_graph  # noqa: E402
 from deeplearning4j_tpu_torch import nlp as t_nlp  # noqa: E402
 from deeplearning4j_tpu_torch.nlp import learning as t_learning  # noqa: E402
@@ -343,6 +349,7 @@ from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork  # noqa: E4
 from deeplearning4j_tpu_torch.ops import _nvcc  # noqa: E402
 from deeplearning4j_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from deeplearning4j_tpu_torch.ops import fused_adam  # noqa: E402
+from deeplearning4j_tpu_torch.ops import short_conv  # noqa: E402
 from deeplearning4j_tpu_torch.optimize import updaters  # noqa: E402
 from deeplearning4j_tpu_torch.models import transformer as tlm  # noqa: E402
 from deeplearning4j_tpu_torch.ops import attention as tattn  # noqa: E402
@@ -388,8 +395,9 @@ FLASH_KERNELS = (fa.FLASH_FWD, fa.FLASH_BWD_PREPROCESS, fa.FLASH_BWD_DQ,
                  fa.FLASH_BWD_DQ_F32, fa.FLASH_BWD_DKV_F32,
                  fa.FLASH_FWD_SPLIT_F32, fa.FLASH_FWD_F32)
 # every hand-written kernel: the flash kernels (whose launches the phases'
-# gates count) and the multi-tensor adam update
-KERNELS = FLASH_KERNELS + (fused_adam.FUSED_ADAM,)
+# gates count), the multi-tensor adam update and the short conv's pair
+KERNELS = FLASH_KERNELS + (fused_adam.FUSED_ADAM, short_conv.SHORTCONV_FWD,
+                           short_conv.SHORTCONV_BWD)
 # the kernels a bf16 attention step launches, and those an f32 one (the
 # ring's hops) launches
 BF16_KERNELS = FLASH_KERNELS[:4]
@@ -536,9 +544,14 @@ def kernel_label(mangled: str) -> str:
     """'flash_bwd_dkv_bf16<64,64>' for a mangled kernel name: its base name
     and its integer (or f32/bf16 type) template arguments."""
     head, sep, tail = mangled.partition("_kernelI")
-    if not sep or "flash_" not in head:
+    if not sep or ("flash_" not in head and "shortconv_" not in head):
         return mangled
     targs = tail.split("EEv", 1)[0]
+    if "shortconv_" in head:   # <dtype, L, aligned or scalar>
+        taps, aligned = re.search(r"Li(\d+)ELb(\d)", targs).groups()
+        return (f"{head[head.rindex('shortconv_'):]}<"
+                f"{'bf16' if 'bfloat16' in targs else 'f32'},{taps},"
+                f"{'aligned' if aligned == '1' else 'scalar'}>")
     args = re.findall(r"Li(\d+)E", targs) or [
         "bf16" if "bfloat16" in targs else "f32"]
     return f"{head[head.rindex('flash_'):]}<{','.join(args)}>"
@@ -1000,6 +1013,118 @@ def phase_fused_adam():
            "plain_ms": plain_ms, "plain_host_ms": plain_host_ms,
            "library": "torch._fused_adam_", "library_ms": library_ms}
     print("fused adam timing at OPT-125m: " + json.dumps(out))
+    return out
+
+
+# LFM2-8B-A1B's cell (benchmark/configs/lfm2-8b-a1b-ep4.json): one row of
+# 8,192 tokens at its published widths, its first 12 layer types (9 conv
+# layers), 8 of 32 routed experts held, filters of 3
+SHORTCONV = {"b": 1, "t": 8192, "c": 2048, "L": 3}
+SHORTCONV_ITERS = 20
+LFM2_TYPES = ["conv", "conv", "full_attention", "conv", "conv", "conv",
+              "full_attention", "conv", "conv", "conv", "full_attention",
+              "conv"]
+LFM2_CELL = {"vocab": 65536, "d_model": 2048, "n_heads": 32, "n_kv_heads": 8,
+             "d_ff": 7168, "moe_d_ff": 1792, "n_experts": 32,
+             "experts_held": 8, "top_k": 4, "num_dense_layers": 2}
+
+
+def phase_short_conv():
+    """The gated short conv's kernels at LFM2-8B-A1B's shape in bf16:
+    against the plain passes (y, dB, dC, dx within one bf16 step and 1e-5
+    of each tensor's largest magnitude, dw within 1e-4), two backward runs
+    bitwise equal, each kernel timed alone beside its bytes bound and the
+    plain passes' time; then one training step (``fit_batch``) of the
+    LFM2 cell's net at its own widths and row, whose launches of each
+    kernel, counted from 0 just before it, are the readings' launches a
+    step (each conv layer once). Returns the readings."""
+    g = SHORTCONV
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 22)
+    bcx = torch.randn(g["b"], g["t"], 3 * g["c"], generator=gen,
+                      device=DEV).to(torch.bfloat16)
+    w = 0.5 * torch.randn(g["c"], g["L"], generator=gen, device=DEV)
+    dy = torch.randn(g["b"], g["t"], g["c"], generator=gen,
+                     device=DEV).to(torch.bfloat16)
+    before = (short_conv.SHORTCONV_FWD.launches,
+              short_conv.SHORTCONV_BWD.launches)
+    y = short_conv.short_conv_fwd_cuda(bcx, w)
+    grad, dw = short_conv.short_conv_bwd_cuda(bcx, w, dy)
+    grad2, dw2 = short_conv.short_conv_bwd_cuda(bcx, w, dy)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(grad, grad2) and torch.equal(dw, dw2)
+    y_ref = short_conv.gated_short_conv_plain(bcx, w)
+    grad_ref, dw_ref = short_conv.backward_plain(bcx, w, dy)
+
+    def excess(got, want):
+        """The largest error beyond one bf16 step and 1e-5 of the tensor's
+        largest magnitude (≤ 0 where they agree), and the largest error
+        over that magnitude."""
+        got, want = got.double(), want.double()
+        err = (got - want).abs()
+        top = float(want.abs().max())
+        return (float((err - 2.0 ** -7 * want.abs() - 1e-5 * top).max()),
+                float(err.max()) / top)
+
+    c = g["c"]
+    errors = {"y": excess(y, y_ref)}
+    for i, name in enumerate(("dB", "dC", "dx")):
+        cut = slice(i * c, (i + 1) * c)
+        errors[name] = excess(grad[..., cut], grad_ref[..., cut])
+    dw_err = float((dw - dw_ref).abs().max() / dw_ref.abs().max())
+    print(f"short conv at {g}: errors beyond bf16 (excess, relative) "
+          f"{errors}, dw {dw_err:.3g}, backward bitwise {bitwise}")
+    if (any(e[0] > 0 for e in errors.values()) or dw_err > 1e-4
+            or not bitwise):
+        raise AssertionError("the short conv kernels disagree with the plain "
+                             "passes or are not bitwise repeatable")
+    del grad2, dw2, y_ref, grad_ref, dw_ref
+    fwd_ms = cuda_ms(lambda: short_conv.short_conv_fwd_cuda(bcx, w),
+                     SHORTCONV_ITERS)
+    bwd_ms = cuda_ms(lambda: short_conv.short_conv_bwd_cuda(bcx, w, dy),
+                     SHORTCONV_ITERS)
+    plain_fwd_ms = cuda_ms(
+        lambda: short_conv.gated_short_conv_plain(bcx, w), 5)
+    plain_bwd_ms = cuda_ms(
+        lambda: short_conv.backward_plain(bcx, w, dy), 5)
+    # the forward reads B, C, x and writes y; the backward reads dy, B, C,
+    # x and writes dB, dC, dx: 4 and 7 bf16 tensors of [b, t, c]
+    n = 2 * g["b"] * g["t"] * c
+    fwd_bytes, bwd_bytes = 4 * n, 7 * n
+    del bcx, dy, y, grad
+
+    # one training step of the cell's net, both counters from 0
+    widths = dict(LFM2_CELL)
+    v = widths.pop("vocab")
+    conf = lfm2_moe_lm(v, layer_types=LFM2_TYPES, conv_L=g["L"],
+                       dtype="mixed_bf16", **widths)
+    net = ComputationGraph(conf, device=DEV)
+    net.init()
+    ids = torch.randint(0, v, (g["b"], g["t"] + 1), generator=gen,
+                        device=DEV)
+    short_conv.SHORTCONV_FWD.launches = 0
+    short_conv.SHORTCONV_BWD.launches = 0
+    loss = net.fit_batch(ids[:, :-1], ids[:, 1:])
+    torch.cuda.synchronize()
+    per_step = {"fwd": short_conv.SHORTCONV_FWD.launches,
+                "bwd": short_conv.SHORTCONV_BWD.launches}
+    convs = LFM2_TYPES.count("conv")
+    print(f"short conv: a training step of the LFM2 cell's net launched "
+          f"{per_step} (loss {float(loss):.4f})")
+    if per_step != {"fwd": convs, "bwd": convs} or \
+            not math.isfinite(float(loss)):
+        raise AssertionError("the conv layers did not each launch the short "
+                             "conv kernels once a step")
+    del net, ids
+    torch.cuda.empty_cache()
+    out = {"shape": g, "dtype": "bf16", "launches_per_step": per_step,
+           "fwd": {"h100_ms": fwd_ms, "bound_ms": 1e3 * fwd_bytes / PEAK_BYTES,
+                   "bound": "bytes", "plain_ms": plain_fwd_ms},
+           "bwd": {"h100_ms": bwd_ms, "bound_ms": 1e3 * bwd_bytes / PEAK_BYTES,
+                   "bound": "bytes", "plain_ms": plain_bwd_ms},
+           "errors": errors, "dw_error": dw_err}
+    for k in ("fwd", "bwd"):
+        out[k]["bound_share"] = out[k]["bound_ms"] / out[k]["h100_ms"]
+    print("short conv timing: " + json.dumps(out))
     return out
 
 
@@ -7010,6 +7135,7 @@ def main():
     bwd_timing = timed_phase("backward kernel timing", phase_bwd_timing,
                              build)
     adam_timing = timed_phase("fused adam", phase_fused_adam)
+    conv_timing = timed_phase("short conv", phase_short_conv)
     net, fwd_launches = timed_phase("forward main path", phase_main_path)
     timed_phase("server", phase_server, net)
     train_launches = timed_phase("training main path", phase_training, net)
@@ -7124,6 +7250,15 @@ def main():
          "replaces_note": "no TPU kernel: the JAX package's adam is plain "
                           "XLA; this replaces the port's per-leaf adam ops",
          "launches": train_launches["fused_adam"], **adam_timing})
+    for k in ("fwd", "bwd"):
+        kernels.append(
+            {"name": f"shortconv_{k}", "route": "cuda",
+             "source": src + "short_conv.cu", "replaces": None,
+             "replaces_note": "no TPU kernel: the JAX package has no gated "
+                              "short conv; this replaces the port's plain "
+                              "passes",
+             "launches": conv_timing["launches_per_step"][k],
+             **conv_timing[k]})
     total = f"script {time.perf_counter() - T_START:.3f} s"
     print(total)
     print(f"chip_smoke: {total}", file=sys.stderr, flush=True)

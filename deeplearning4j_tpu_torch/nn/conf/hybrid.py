@@ -140,7 +140,8 @@ class GatedShortConvLayer(_SequenceLayer):
     order), ``conv [n_in, conv_l]`` (``conv[:, -1]`` weighs the current
     step), ``W_out [n_in, n_out]``, no biases. Causal: step t reads steps
     ≤ t. A decode would carry the last ``conv_l − 1`` gated inputs per
-    sequence, which no cache of the port holds."""
+    sequence, which no cache of the port holds. Each forward counts
+    ``shortconv_calls_total{model=<name>, path}`` (``ops/short_conv.py``)."""
 
     conv_l: int = 3
 
@@ -155,7 +156,8 @@ class GatedShortConvLayer(_SequenceLayer):
         xc = policy.cast_to_compute(self._dropout_in(x, train, generator))
         dt = xc.dtype
         bcx = torch.matmul(xc, params["W_in"].to(dt))
-        y = gated_short_conv(bcx, params["conv"])
+        y = gated_short_conv(bcx, params["conv"],
+                             self.name or "gated_short_conv")
         out = torch.matmul(y, params["W_out"].to(dt))
         if mask is not None:
             out = out * mask[:, :, None].to(out.dtype)
